@@ -15,10 +15,10 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
    plain PyTorch version on the card, for normal and wide packing; times both
    with CUDA events;
 4. main path: resets and steps the flagship with auto-reset, carrying the
-   observation buffer (8 warm-up, 128 timed steps); checks that B1 launched
-   once per observation pass, that no output is NaN and that every agent
-   attempted tokens; prints env-steps/s;
-5. GPU against CPU: 60 steps of a small arena (64 envs, max_steps 24, a
+   observation buffer (8 warm-up, 64 timed steps); checks that B1 launched
+   once per observation pass and no other tail kernel launched, that no
+   output is NaN and that every agent attempted tokens; prints env-steps/s;
+5. GPU against CPU: 48 steps of a small arena (64 envs, max_steps 24, a
    pool of one map and one of three, agent orders and reset maps fed from
    numpy) on the card and on the CPU plain path; every output and every
    state field but rng must be byte-equal;
@@ -26,18 +26,31 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
    wall_bloom event, 4096 envs, pool 64) for 24 steps, so the event has
    fired at steps 4 and 20, and holds kernel B2 equal to its plain version
    on the live state, normal and wide packing; times both;
-7. general main path: 8 warm-up and 64 timed steps with random primary and
-   vibe actions; checks that B2 launched once per observation pass, that the
-   event gave walls hearts and that the melee handler applied; prints
-   env-steps/s;
+7. general main path: 8 warm-up and 32 timed steps with random primary and
+   vibe actions; checks B2's launches, that the event gave walls hearts and
+   that the melee handler applied; prints env-steps/s;
 8. combat main path: the same for the combat config, whose static
    background takes B1 with wide packing; checks B1's launches and that
    attacks lowered hearts;
 9. GPU against CPU on the general config: 64 envs, max_steps 24, a pool of
-   three maps, agent orders, reset maps and event ranks from numpy, 60
+   three maps, agent orders, reset maps and event ranks from numpy, 48
    steps, for the bench config and with the combat config's starting
    inventory (so attacks deal damage); every output and every state field
-   but rng must be byte-equal.
+   but rng must be byte-equal;
+10. arena_lp (the flagship with local-position tokens, absent on the spawn
+    cell): kernel B4 against its plain version on the live state after 12
+    steps, then the main path (8 warm-up, 32 timed steps) with B4's launches
+    counted from 0;
+11. general_lp (the general config with local-position tokens): the same
+    for kernel B5 over the per-env image built from every object;
+12. arena_128 (the flagship on 128x128 maps, whose image is too large to
+    stage in shared memory): the same for kernel B3 over the per-env image
+    in device memory (normal and wide packing), with the peak device
+    memory of the main path;
+13. GPU against CPU for the three new routes: 48 steps of arena_lp and
+    general_lp (64 envs, max_steps 24, pool 3) and 40 steps of arena_128
+    (8 envs, max_steps 16, pool 2), every output and every state field but
+    rng byte-equal.
 
 Every phase asserts. The line before the last is the kernels' JSON record;
 the last line is {"ok": true, "device": {...}}. With no CUDA device, or
@@ -58,6 +71,15 @@ import numpy as np
 # float32 rate outside the tensor cores, used as the card's 32-bit scalar rate.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+
+# Wrapper name -> (the TPU kernel it replaces, label).
+_KERNELS = {
+    "obs_tail_static_v2": ("mettagrid_tpu/engine/pallas_kernels.py:594", "B1"),
+    "obs_tail_dynobj_v2": ("mettagrid_tpu/engine/pallas_kernels.py:1104", "B2"),
+    "obs_tail_dyn_v2": ("mettagrid_tpu/engine/pallas_kernels.py:970", "B3"),
+    "obs_tail_static_v1": ("mettagrid_tpu/engine/pallas_kernels.py:1374", "B4"),
+    "obs_tail_v1": ("mettagrid_tpu/engine/pallas_kernels.py:211", "B5"),
+}
 
 
 def _card_line() -> str:
@@ -82,44 +104,73 @@ def _time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-_KERNELS = {
-    "obs_tail_static_v2": ("mettagrid_tpu/engine/pallas_kernels.py:594", "B1"),
-    "obs_tail_dynobj_v2": ("mettagrid_tpu/engine/pallas_kernels.py:1104", "B2"),
-}
+def _wrappers():
+    """{name: (wrapper, plain version)} of every tail kernel."""
+    import importlib
+
+    out = {}
+    for name in _KERNELS:
+        mod = importlib.import_module(f"mettagrid_tpu_torch.engine.kernels.{name}")
+        out[name] = (getattr(mod, name), getattr(mod, f"{name}_ref"))
+    return out
+
+
+def _zero_counts():
+    for kernel, _ in _wrappers().values():
+        kernel.launches = 0
+
+
+def _window_words(torch, args) -> int:
+    """The image words inside some agent's window: the part of a per-env
+    image (B3, B5) that the function must read."""
+    imgp, row0, lane0, geom, S = args["imgp"], args["row0"], args["lane0"], args["geom"], args["S"]
+    E, HP, WPC = imgp.shape
+    Wc = WPC // S
+    r = row0[..., None] + geom[:, 0]  # [E, A, K]
+    c = torch.div(lane0, S, rounding_mode="floor")[..., None] + geom[:, 1]
+    inside = (r >= 0) & (r < HP) & (c >= 0) & (c < Wc)
+    e = torch.arange(E, device=imgp.device)[:, None, None].expand_as(r)
+    mask = torch.zeros((E, HP, Wc), dtype=torch.bool, device=imgp.device)
+    mask[e[inside], r[inside].long(), c[inside].long()] = True
+    return int(mask.sum()) * S
 
 
 def _tail_record(torch, obs_fn, state):
-    """Phases 3 and 6: the obs tail kernel of ``obs_fn`` against its plain
-    version on a live state, normal and wide packing; CUDA-event times and
-    the bound computed from these inputs."""
-    from mettagrid_tpu_torch.engine.kernels import obs_tail_dynobj_v2, obs_tail_static_v2
-
+    """The tail kernel of ``obs_fn`` against its plain version on a live
+    state (each packing the kernel takes), its CUDA-event times and the
+    bound computed from these inputs."""
     kernel = obs_fn.tail
     name = kernel.__name__
-    plain = {"obs_tail_static_v2": obs_tail_static_v2.obs_tail_static_v2_ref,
-             "obs_tail_dynobj_v2": obs_tail_dynobj_v2.obs_tail_dynobj_v2_ref}[name]
+    plain = _wrappers()[name][1]
     label = _KERNELS[name][1]
     args = obs_fn.tail_inputs(state)
+    packings = [{"wide": False}, {"wide": True}] if obs_fn.wide is not None else [{}]
     err = 0
-    for wide in (False, True):
-        kw, ka = kernel(**args, out_w=obs_fn.out_w, wide=wide)
-        rw, ra = plain(**args, out_w=obs_fn.out_w, wide=wide)
+    for kw in packings:
+        kw = dict(kw, out_w=obs_fn.out_w)
+        kw_, ka = kernel(**args, **kw)
+        rw, ra = plain(**args, **kw)
         torch.cuda.synchronize()
-        assert torch.equal(kw, rw), f"{label} words differ from the plain version (wide={wide})"
-        assert torch.equal(ka, ra), f"{label} attempted counts differ from the plain version (wide={wide})"
-        err = max(err, int((kw.long() - rw.long()).abs().max()), int((ka.long() - ra.long()).abs().max()))
+        assert torch.equal(kw_, rw), f"{label} words differ from the plain version ({kw})"
+        assert torch.equal(ka, ra), f"{label} attempted counts differ from the plain version ({kw})"
+        err = max(err, int((kw_.long() - rw.long()).abs().max()), int((ka.long() - ra.long()).abs().max()))
     assert int(ka.min()) > 0
-    kernel_ms = _time_ms(torch, lambda: kernel(**args, out_w=obs_fn.out_w, wide=obs_fn.wide), 50)
-    plain_ms = _time_ms(torch, lambda: plain(**args, out_w=obs_fn.out_w, wide=obs_fn.wide), 5)
+    call = dict(out_w=obs_fn.out_w, **({} if obs_fn.wide is None else {"wide": obs_fn.wide}))
+    kernel_ms = _time_ms(torch, lambda: kernel(**args, **call), 50)
+    plain_ms = _time_ms(torch, lambda: plain(**args, **call), 5)
 
     tensors = {k: v for k, v in args.items() if isinstance(v, torch.Tensor)}
     E, A = args["row0"].shape
-    S, G, K = args["words"].shape[2], args["gplus"].shape[2], args["geom"].shape[0]
+    front = args.get("gplus", args.get("gwords"))
+    K = args["geom"].shape[0]
+    S = args["S"] if "S" in args else args["words"].shape[2]
     bytes_in = sum(t.numel() * t.element_size() for t in tensors.values())
+    if "imgp" in args:  # an image in device memory: only the window words must be read
+        bytes_in += (_window_words(torch, args) - args["imgp"].numel()) * 4
     bytes_out = E * A * obs_fn.out_w * 4 + E * A * 4
     bytes_ms = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
     # One test per candidate, and one add per object word for B2's image.
-    ops = E * A * (G + K * S) + (args["words"].numel() if name == "obs_tail_dynobj_v2" else 0)
+    ops = E * A * (front.shape[2] + K * S) + (args["words"].numel() if name == "obs_tail_dynobj_v2" else 0)
     ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     return {
         "name": name,
@@ -137,10 +188,33 @@ def _tail_record(torch, obs_fn, state):
     }
 
 
+def _timed_path(torch, bench, n_timed: int, kernel):
+    """A variant's main path from the counts at 0: reset, warm-up and n_timed
+    steps. Asserts that ``kernel`` launched once per observation pass and no
+    other tail kernel launched; returns (state, out, seconds, launches)."""
+    from mettagrid_tpu_torch.tools.bench_run import AGENTS, ENVS, WARMUP
+
+    _zero_counts()
+    state, out = bench.warmed_up()
+    state, out, dt = bench.timed(state, out, n_timed)
+    launches = {name: k.launches for name, (k, _) in _wrappers().items()}
+    want = 1 + WARMUP + n_timed
+    name = kernel.__name__
+    assert launches[name] == want, f"{name} launched {launches[name]} times for {want} obs passes"
+    others = {k: v for k, v in launches.items() if k != name and v}
+    assert not others, f"the {bench.variant} path launched other tail kernels: {others}"
+    T = bench.program.num_tokens
+    assert tuple(out.observations.shape) == (ENVS, AGENTS, T, 3) and out.observations.dtype == torch.uint8
+    assert torch.isfinite(out.rewards).all() and torch.isfinite(state.game_stats).all()
+    assert torch.isfinite(state.episode_rewards).all()
+    assert int(out.tokens_attempted.min()) > 0, "an agent attempted no tokens"
+    return state, out, dt, launches[name]
+
+
 def _main_path(torch, card: str):
     """Phases 3 and 4 on the flagship at full width."""
     from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import obs_tail_static_v2
-    from mettagrid_tpu_torch.tools.bench_run import AGENTS, ENVS, POOL, WARMUP, BenchRun
+    from mettagrid_tpu_torch.tools.bench_run import AGENTS, ENVS, POOL, BenchRun
 
     flagship = BenchRun("flagship", seed=1234)
 
@@ -151,68 +225,70 @@ def _main_path(torch, card: str):
           f"plain {record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms", flush=True)
 
     # --- phase 4: the main path, counts from 0 ---
-    obs_tail_static_v2.launches = 0
-    n_timed = 128
-    state, out = flagship.warmed_up()
-    state, out, dt = flagship.timed(state, out, n_timed)
-    launches = obs_tail_static_v2.launches
-    assert launches == 1 + WARMUP + n_timed, f"B1 launched {launches} times for {1 + WARMUP + n_timed} obs passes"
-    T = flagship.program.num_tokens
-    assert tuple(out.observations.shape) == (ENVS, AGENTS, T, 3)
-    assert out.observations.dtype == torch.uint8
-    for name in ("rewards",):
-        assert torch.isfinite(getattr(out, name)).all(), f"{name} holds NaN or inf"
-    assert torch.isfinite(state.game_stats).all() and torch.isfinite(state.episode_rewards).all()
-    assert int(out.tokens_attempted.min()) > 0, "an agent attempted no tokens"
+    n_timed = 64
+    state, out, dt, launches = _timed_path(torch, flagship, n_timed, obs_tail_static_v2)
     moved = int((state.obj_r[:, :AGENTS] != state.agent_spawn_r).sum())
     assert moved > 0, "no agent moved"
     record["launches"] = launches
-    rate = ENVS * n_timed / dt
     print(f"[4] flagship main path, {ENVS} envs x {AGENTS} agents, pool {POOL}, auto-reset, obs carried: "
-          f"{rate:.0f} env-steps/s, {dt / n_timed * 1e3:.3f} ms/step (host clock over {n_timed} steps) "
-          f"on {card}; B1 launches {launches}", flush=True)
+          f"{ENVS * n_timed / dt:.0f} env-steps/s, {dt / n_timed * 1e3:.3f} ms/step (host clock over {n_timed} "
+          f"steps) on {card}; B1 launches {launches}", flush=True)
     return record
 
 
-def _gpu_vs_cpu(torch, pool: int):
-    """Phase 5: the card's path against the CPU plain path, byte for byte.
-    With more than one map, both take the same reset maps, drawn with numpy,
-    so the gathered auto-reset merge is compared too."""
+def _gpu_vs_cpu(torch, variant: str, pool: int, E: int, n_steps: int, max_steps: int, armed: bool = False):
+    """The card's path against the CPU plain path, byte for byte, with agent
+    orders, reset maps and (where the config has events) event ranks drawn
+    with numpy and fed to both. Returns the card's trace of (state, outputs)
+    as numpy, one entry per step and one for the reset."""
     from mettagrid_tpu_torch.engine import make_reset, make_step
     from mettagrid_tpu_torch.engine.interop import state_to_numpy
     from mettagrid_tpu_torch.tools.bench_run import AGENTS, build_pool, make_cfg
 
-    E, n_steps = 64, 60
-    program, init = build_pool(make_cfg("flagship"), pool, max_steps=24)
+    cfg = make_cfg(variant)
+    if armed:
+        cfg.game.agent.inventory.initial = {"laser": 5, "armor": 1, "heart": 9}
+    program, init = build_pool(cfg, pool, max_steps=max_steps)
     n_actions = len(program.action_names)
+    names = program.action_names
+    angry = names.index("change_vibe_angry") if "change_vibe_angry" in names else None
+    N = init.obj_type.shape[1]
     runs = {}
     for dev in ("cuda", "cpu"):
         reset = make_reset(program, init, E, device=dev)
         step = make_step(program, init, auto_reset=True, external_perm=True, device=dev)
-        rng = np.random.default_rng(5)
+        rng = np.random.default_rng(6)
         state, out = reset(0)
         trace = [(state_to_numpy(state), {k: v.cpu().numpy().copy() for k, v in out._asdict().items()})]
         for _ in range(n_steps):
-            acts = rng.integers(-1, n_actions + 1, (E, AGENTS)).astype(np.int32)
+            if angry is None:
+                acts = rng.integers(-1, n_actions + 1, (E, AGENTS)).astype(np.int32)
+                vibes = np.zeros_like(acts)
+            else:
+                acts = np.where(rng.random((E, AGENTS)) < 0.8, rng.integers(0, 5, (E, AGENTS)),
+                                rng.integers(-1, n_actions + 1, (E, AGENTS))).astype(np.int32)
+                vibes = np.where(rng.random((E, AGENTS)) < 0.3, angry,
+                                 rng.integers(-1, n_actions + 1, (E, AGENTS))).astype(np.int32)
             perm = np.stack([rng.permutation(AGENTS) for _ in range(E)]).astype(np.int32)
-            maps = torch.from_numpy(rng.integers(0, pool, E).astype(np.int32)).to(dev) if pool > 1 else None
-            t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-            state, out = step(state, t(acts), t(np.zeros_like(acts)), t(perm), out.observations, reset_maps=maps)
+            maps = rng.integers(0, pool, E).astype(np.int32)
+            ranks = rng.random((E, 1, N), dtype=np.float32) if program.events else None
+            t = lambda a: None if a is None else torch.from_numpy(a).to(dev)  # noqa: E731
+            state, out = step(state, t(acts), t(vibes), t(perm), out.observations,
+                              reset_maps=t(maps) if pool > 1 else None, event_ranks=t(ranks))
             trace.append((state_to_numpy(state), {k: v.cpu().numpy().copy() for k, v in out._asdict().items()}))
         runs[dev] = trace
     for i, ((gs, go), (cs, co)) in enumerate(zip(runs["cuda"], runs["cpu"])):
         for name in go:
-            assert np.array_equal(go[name], co[name]), f"step {i}: output {name} differs between GPU and CPU"
+            assert np.array_equal(go[name], co[name]), f"{variant} step {i}: output {name} differs between GPU and CPU"
         for name in gs:
             if name != "rng":
-                assert np.array_equal(gs[name], cs[name]), f"step {i}: state {name} differs between GPU and CPU"
+                assert np.array_equal(gs[name], cs[name]), f"{variant} step {i}: state {name} differs between GPU and CPU"
     trace = runs["cuda"]
-    assert trace[25][0]["step_count"].max() == 1, "no auto-reset in the compared window"
+    assert trace[max_steps + 1][0]["step_count"].max() == 1, "no auto-reset in the compared window"
     if pool > 1:
         moved = sum(int((b["map_idx"] != a["map_idx"]).sum()) for (a, _), (b, _) in zip(trace, trace[1:]))
         assert moved > 0, "no auto-reset moved an env to another map"
-    print(f"[5] GPU path equals the CPU path over {n_steps} steps of {E} envs, pool of {pool} map(s), with "
-          "auto-resets (every output, every state field but rng)", flush=True)
+    return program, trace
 
 
 def _general_paths(torch, card: str):
@@ -220,7 +296,7 @@ def _general_paths(torch, card: str):
     then the general and combat main paths at full width."""
     from mettagrid_tpu_torch.engine.kernels.obs_tail_dynobj_v2 import obs_tail_dynobj_v2
     from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import obs_tail_static_v2
-    from mettagrid_tpu_torch.tools.bench_run import AGENTS, ENVS, POOL, WARMUP, BenchRun
+    from mettagrid_tpu_torch.tools.bench_run import AGENTS, ENVS, POOL, BenchRun
 
     general = BenchRun("general", seed=4321)
     program = general.program
@@ -247,18 +323,8 @@ def _general_paths(torch, card: str):
           flush=True)
 
     # --- phase 7: the general main path, counts from 0 ---
-    obs_tail_dynobj_v2.launches = 0
-    obs_tail_static_v2.launches = 0
-    n_timed = 64
-    state, out = general.warmed_up()
-    state, out, dt = general.timed(state, out, n_timed)
-    launches = obs_tail_dynobj_v2.launches
-    assert launches == 1 + WARMUP + n_timed, f"B2 launched {launches} times for {1 + WARMUP + n_timed} obs passes"
-    assert obs_tail_static_v2.launches == 0, "the general path launched B1"
-    T = program.num_tokens
-    assert tuple(out.observations.shape) == (ENVS, A, T, 3) and out.observations.dtype == torch.uint8
-    assert torch.isfinite(out.rewards).all() and torch.isfinite(state.game_stats).all()
-    assert int(out.tokens_attempted.min()) > 0, "an agent attempted no tokens"
+    n_timed = 32
+    state, out, dt, launches = _timed_path(torch, general, n_timed, obs_tail_dynobj_v2)
     walls_hearts = int(state.obj_inv[:, A:, heart].sum())
     assert walls_hearts > 0 and float(state.game_stats[:, event_stat].sum()) > 0, "no event gave a wall a heart"
     assert melee > 0, "the melee handler never applied"
@@ -271,12 +337,7 @@ def _general_paths(torch, card: str):
     # --- phase 8: the combat main path (static background, B1 wide) ---
     combat = BenchRun("combat", seed=99)
     assert combat.step.obs_fn.tail is obs_tail_static_v2 and combat.step.obs_fn.wide
-    obs_tail_static_v2.launches = 0
-    state, out = combat.warmed_up()
-    state, out, dt = combat.timed(state, out, n_timed)
-    wide_launches = obs_tail_static_v2.launches
-    assert wide_launches == 1 + WARMUP + n_timed, f"B1 launched {wide_launches} times for {1 + WARMUP + n_timed} obs passes"
-    assert int(out.tokens_attempted.min()) > 0 and torch.isfinite(out.rewards).all()
+    state, out, dt, wide_launches = _timed_path(torch, combat, n_timed, obs_tail_static_v2)
     R = combat.program.num_resources
     hearts_lost = int(state.auto_stats[..., R + heart].sum())
     assert hearts_lost > 0, "no attack lowered a heart"
@@ -287,56 +348,49 @@ def _general_paths(torch, card: str):
     return record
 
 
-def _general_gpu_vs_cpu(torch, armed: bool):
-    """Phase 9: the general config on the card against the CPU plain path,
-    byte for byte, with agent orders, reset maps and event ranks from numpy."""
-    from mettagrid_tpu_torch.engine import make_reset, make_step
-    from mettagrid_tpu_torch.engine.interop import state_to_numpy
-    from mettagrid_tpu_torch.tools.bench_run import AGENTS, build_pool, make_cfg
+def _new_route(torch, card: str, phase: int, variant: str, kernel):
+    """Phases 10-12: the variant's tail kernel against its plain version on
+    the live state after 12 steps, then its main path from the counts at 0."""
+    from mettagrid_tpu_torch.tools.bench_run import AGENTS, ENVS, POOL, BenchRun
 
-    E, n_steps, pool = 64, 60, 3
-    cfg = make_cfg("general")
-    if armed:
-        cfg.game.agent.inventory.initial = {"laser": 5, "armor": 1, "heart": 9}
-    program, init = build_pool(cfg, pool, max_steps=24)
-    n_actions = len(program.action_names)
-    angry = program.action_names.index("change_vibe_angry")
-    N = init.obj_type.shape[1]
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        reset = make_reset(program, init, E, device=dev)
-        step = make_step(program, init, auto_reset=True, external_perm=True, device=dev)
-        rng = np.random.default_rng(6)
-        state, out = reset(0)
-        trace = [(state_to_numpy(state), {k: v.cpu().numpy().copy() for k, v in out._asdict().items()})]
-        for _ in range(n_steps):
-            acts = np.where(rng.random((E, AGENTS)) < 0.8, rng.integers(0, 5, (E, AGENTS)),
-                            rng.integers(-1, n_actions + 1, (E, AGENTS))).astype(np.int32)
-            vibes = np.where(rng.random((E, AGENTS)) < 0.3, angry,
-                             rng.integers(-1, n_actions + 1, (E, AGENTS))).astype(np.int32)
-            perm = np.stack([rng.permutation(AGENTS) for _ in range(E)]).astype(np.int32)
-            maps = rng.integers(0, pool, E).astype(np.int32)
-            ranks = rng.random((E, 1, N), dtype=np.float32)
-            t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-            state, out = step(state, t(acts), t(vibes), t(perm), out.observations, reset_maps=t(maps), event_ranks=t(ranks))
-            trace.append((state_to_numpy(state), {k: v.cpu().numpy().copy() for k, v in out._asdict().items()}))
-        runs[dev] = trace
-    for i, ((gs, go), (cs, co)) in enumerate(zip(runs["cuda"], runs["cpu"])):
-        for name in go:
-            assert np.array_equal(go[name], co[name]), f"step {i}: output {name} differs between GPU and CPU"
-        for name in gs:
-            if name != "rng":
-                assert np.array_equal(gs[name], cs[name]), f"step {i}: state {name} differs between GPU and CPU"
-    last = runs["cuda"][-1][0]
-    assert runs["cuda"][25][0]["step_count"].max() == 1, "no auto-reset in the compared window"
+    torch.cuda.empty_cache()
+    bench = BenchRun(variant, seed=100 + phase)
+    fn = bench.step.obs_fn
+    assert fn.tail is kernel, f"{variant} routes to {fn.tail.__name__}, not {kernel.__name__}"
+    label = _KERNELS[kernel.__name__][1]
+    state, out = bench.run(*bench.reset(0), 12)
+    off_spawn = float(((state.obj_r[:, :AGENTS] != state.agent_spawn_r)
+                       | (state.obj_c[:, :AGENTS] != state.agent_spawn_c)).float().mean())
+    assert 0 < off_spawn < 1, "every agent on, or every agent off, its spawn cell"
+    record = _tail_record(torch, fn, state)
+    del state, out
+    print(f"[{phase}] {label} equal to its plain version on the {variant} state after 12 steps "
+          f"({off_spawn:.2f} of agents off their spawn cell): kernel {record['ms']:.4f} ms, "
+          f"plain {record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms ({record['bound_by']})", flush=True)
+    n_timed = 32
+    torch.cuda.reset_peak_memory_stats()
+    state, out, dt, launches = _timed_path(torch, bench, n_timed, kernel)
+    peak = torch.cuda.max_memory_allocated()
+    record["launches"] = launches
+    print(f"[{phase}] {variant} main path ({fn.route}), {ENVS} envs x {AGENTS} agents, pool {POOL}, auto-reset, "
+          f"obs carried: {ENVS * n_timed / dt:.0f} env-steps/s, {dt / n_timed * 1e3:.3f} ms/step (host clock over "
+          f"{n_timed} steps) on {card}; {label} launches {launches}; peak device memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    return record
+
+
+def _general_gpu_vs_cpu(torch, armed: bool):
+    """Phase 9: the general config, as built or armed; checks that the
+    compared window holds an event and, armed, a damaging attack."""
+    from mettagrid_tpu_torch.tools.bench_run import AGENTS
+
+    program, trace = _gpu_vs_cpu(torch, "general", 3, 64, 48, 24, armed=armed)
     heart = list(program.resource_names).index("heart")
-    assert last["obj_inv"][:, AGENTS:, heart].sum() > 0, "no event in the compared window"
+    assert trace[-1][0]["obj_inv"][:, AGENTS:, heart].sum() > 0, "no event in the compared window"
     if armed:
-        lost = max(s["auto_stats"][..., program.num_resources + heart].sum() for s, _ in runs["cuda"])
+        lost = max(s["auto_stats"][..., program.num_resources + heart].sum() for s, _ in trace)
         assert lost > 0, "no attack lowered a heart in the compared window"
-    print(f"[9] GPU path equals the CPU path on the general config{' (armed)' if armed else ''} over {n_steps} "
-          f"steps of {E} envs, pool of {pool} maps, with auto-resets and events (every output, every state "
-          "field but rng)", flush=True)
+    return program, trace
 
 
 def main() -> int:
@@ -352,6 +406,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # --- phase 1: device ---
     card = _card_line()
@@ -365,16 +420,33 @@ def main() -> int:
         ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         print(f"[2] built {kname} in {secs:.1f} s: {'; '.join(ptxas)}", flush=True)
     print(f"[2] build phase {time.perf_counter() - t0:.1f} s", flush=True)
+    wrappers = _wrappers()
 
     b1 = _main_path(torch, card)
     for pool in (1, 3):
-        _gpu_vs_cpu(torch, pool)
+        _gpu_vs_cpu(torch, "flagship", pool, 64, 48, 24)
+        print(f"[5] GPU path equals the CPU path over 48 steps of 64 envs, pool of {pool} map(s), with "
+              "auto-resets (every output, every state field but rng)", flush=True)
     b2 = _general_paths(torch, card)
     for armed in (False, True):
-        _general_gpu_vs_cpu(torch, armed)
+        program, trace = _general_gpu_vs_cpu(torch, armed)
+        print(f"[9] GPU path equals the CPU path on the general config{' (armed)' if armed else ''} over 48 "
+              "steps of 64 envs, pool of 3 maps, with auto-resets and events (every output, every state field "
+              "but rng)", flush=True)
 
+    b4 = _new_route(torch, card, 10, "arena_lp", wrappers["obs_tail_static_v1"][0])
+    b5 = _new_route(torch, card, 11, "general_lp", wrappers["obs_tail_v1"][0])
+    b3 = _new_route(torch, card, 12, "arena_128", wrappers["obs_tail_dyn_v2"][0])
+    torch.cuda.empty_cache()
+    for variant, pool, E, n_steps, max_steps in (("arena_lp", 3, 64, 48, 24), ("general_lp", 3, 64, 48, 24),
+                                                 ("arena_128", 2, 8, 40, 16)):
+        _gpu_vs_cpu(torch, variant, pool, E, n_steps, max_steps)
+        print(f"[13] GPU path equals the CPU path on {variant} over {n_steps} steps of {E} envs, pool of {pool} "
+              "maps, with auto-resets (every output, every state field but rng)", flush=True)
+
+    print(f"[13] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
-    print(json.dumps({"kernels": [b1, b2]}))
+    print(json.dumps({"kernels": [b1, b2, b3, b4, b5]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

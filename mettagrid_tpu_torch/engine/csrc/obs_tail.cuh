@@ -1,0 +1,122 @@
+// The observation tail shared by kernels B1 (obs_tail_static_v2.cu), B2
+// (obs_tail_dynobj_v2.cu), B3 (obs_tail_dyn_v2.cu), B4 (obs_tail_static_v1.cu)
+// and B5 (obs_tail_v1.cu), for Hopper (sm_90a).
+//
+// The kernels run one block per env over that env's image, int32 [HP, WPC]
+// of +1-encoded token words (0 = empty). B1, B2 and B4 build it in shared
+// memory; B3 and B5 read it from device memory, built beforehand. This header
+// holds what follows (the image pointer may address either memory):
+//   cells = G global words (+1-encoded, 0 = absent), then
+//           img[row0 + u_k][lane0 + v_k*S + s] for the K window cells in
+//           Manhattan order (table `geom`) and s < S;
+//   the cells > 0 are valid; they are front-compacted stably into
+//   out[e, a, :out_w], ranks at or past out_w dropped, and written in one of
+//   two word formats (below), the format's empty word filling the rest;
+//   attempted[e, a] = the number of valid cells, globals and dropped ones
+//   included.
+// The v2 format (B1-B3) is loc | feat << 8 | val << 16 with 0xFFFFFF for
+// empty slots: the packing (loc shifted by 15, or 14 when wide, over
+// word - 1; a loc field of 0xFF reads as empty) reproduces the reference's
+// packed compaction bit for bit. The v1 format (B4, B5) is the reference's
+// (feat << 8 | val) | loc << 16 with -1 for empty slots.
+//
+// One warp per agent walks the candidates 32 at a time; __ballot_sync and
+// __popc give each valid lane its output rank, so the compaction costs no
+// extra pass and every output word is written exactly once, neighbouring
+// lanes on neighbouring addresses.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace obs_tail {
+
+constexpr int kMaxWarps = 8;
+constexpr unsigned kGlobalLocation = 0xFEu;
+
+// Shared memory of one block: the image, then three candidate tables.
+inline int smem_bytes(int HP, int WPC, int K, int S) { return (HP * WPC + 3 * K * S) * (int)sizeof(int); }
+
+// Threads per block: one warp per agent, at most kMaxWarps.
+inline int block_threads(int A) { return 32 * (A < kMaxWarps ? A : kMaxWarps); }
+
+// The candidate tables of window cell k and slot s (j = k*S + s): image row
+// and lane offsets and the packed location byte, after the image in `smem`.
+__device__ inline void load_tables(const int* __restrict__ geom, int K, int S, int* tab) {
+  const int KS = K * S;
+  for (int j = threadIdx.x; j < KS; j += blockDim.x) {
+    const int k = j / S;
+    const int s = j - k * S;
+    tab[j] = geom[3 * k];
+    tab[KS + j] = geom[3 * k + 1] * S + s;
+    tab[2 * KS + j] = geom[3 * k + 2];
+  }
+}
+
+// The v2 word of a valid cell, normal (`wide` = 0) or wide packing.
+struct V2Words {
+  static constexpr int kEmpty = 0xFFFFFF;
+  int loc_sh;
+  unsigned feat_mask;
+  __device__ explicit V2Words(int wide) : loc_sh(wide ? 14 : 15), feat_mask(wide ? 0x3F00u : 0x7F00u) {}
+  __device__ int operator()(int cell, unsigned loc) const {
+    const unsigned packed = (unsigned)(cell - 1) | (loc << loc_sh);
+    const unsigned loc_field = (packed >> loc_sh) & 0xFFu;
+    return loc_field == 0xFFu ? kEmpty : (int)(loc_field | (packed & feat_mask) | ((packed & 0xFFu) << 16));
+  }
+};
+
+// The v1 word of a valid cell.
+struct V1Words {
+  static constexpr int kEmpty = -1;
+  __device__ int operator()(int cell, unsigned loc) const { return (cell - 1) | (int)(loc << 16); }
+};
+
+// The tail for every agent of env e over the image `img` and the tables
+// `tab` (load_tables), in the word format `fmt` (V2Words or V1Words). Call
+// after a __syncthreads that follows the last write to either.
+template <class Words>
+__device__ inline void agents(const Words fmt, const int* img, const int* tab, int HP, int WPC, int KS,
+                              const int* __restrict__ row0, const int* __restrict__ lane0,
+                              const int* __restrict__ gplus, int* __restrict__ out,
+                              int* __restrict__ attempted, int e, int A, int G, int out_w) {
+  const int* tab_u = tab;
+  const int* tab_l = tab + KS;
+  const int* tab_loc = tab + 2 * KS;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const unsigned lanes_below = (1u << lane) - 1u;
+  const int C = G + KS;
+  for (int a = warp; a < A; a += nwarps) {
+    const size_t ea = (size_t)e * A + a;
+    const int r0 = row0[ea];
+    const int l0 = lane0[ea];
+    int* o = out + ea * out_w;
+    int count = 0;
+    for (int j0 = 0; j0 < C; j0 += 32) {
+      const int j = j0 + lane;
+      int cell = 0;
+      unsigned loc = 0;
+      if (j < G) {
+        cell = gplus[ea * G + j];
+        loc = kGlobalLocation;
+      } else if (j < C) {
+        const int jj = j - G;
+        const int r = r0 + tab_u[jj];
+        const int l = l0 + tab_l[jj];
+        cell = (r >= 0 && r < HP && l >= 0 && l < WPC) ? img[r * WPC + l] : 0;
+        loc = (unsigned)tab_loc[jj];
+      }
+      const bool ok = cell > 0;
+      const unsigned vote = __ballot_sync(0xFFFFFFFFu, ok);
+      const int rank = count + __popc(vote & lanes_below);
+      if (ok && rank < out_w) o[rank] = fmt(cell, loc);
+      count += __popc(vote);
+    }
+    for (int i = (count < out_w ? count : out_w) + lane; i < out_w; i += 32) o[i] = Words::kEmpty;
+    if (lane == 0) attempted[ea] = count;
+  }
+}
+
+}  // namespace obs_tail

@@ -9,7 +9,7 @@
 //           words[e, n, s] at (rext[e, n], lext[e, n] + s); positions outside
 //           the image add nothing, and dead objects carry zero words whatever
 //           their stale coordinates;
-//   then the v2 tail of obs_tail_v2_tail.cuh (B1's): the G globals and the
+//   then the v2 tail of obs_tail.cuh (B1's): the G globals and the
 //   window candidates, valid when > 0, front-compacted into packed words,
 //   and the attempted counts.
 // The TPU kernel sums the words into the image through an exact one-hot
@@ -30,7 +30,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "obs_tail_v2_tail.cuh"
+#include "obs_tail.cuh"
 
 namespace {
 
@@ -55,7 +55,7 @@ __global__ void obs_tail_dynobj_v2_kernel(
   // ---- zero the image (16-byte stores; HP*WPC % 4 == 0) ----
   int4* dst = reinterpret_cast<int4*>(img);
   for (int i = tid; i < n_img / 4; i += blockDim.x) dst[i] = make_int4(0, 0, 0, 0);
-  obs_tail_v2::load_tables(geom, K, S, tab);
+  obs_tail::load_tables(geom, K, S, tab);
   __syncthreads();
 
   // ---- add every object's words (neighbouring threads read neighbouring
@@ -72,7 +72,8 @@ __global__ void obs_tail_dynobj_v2_kernel(
   }
   __syncthreads();
 
-  obs_tail_v2::agents(img, tab, HP, WPC, K * S, row0, lane0, gplus, out, attempted, e, A, G, out_w, wide);
+  obs_tail::agents(obs_tail::V2Words(wide), img, tab, HP, WPC, K * S, row0, lane0, gplus, out,
+                   attempted, e, A, G, out_w);
 }
 
 }  // namespace
@@ -82,13 +83,13 @@ extern "C" int obs_tail_dynobj_v2_launch(
     const void* rext, const void* lext, const void* words, const void* row0, const void* lane0,
     const void* gplus, const void* geom, void* out, void* attempted, int HP, int WPC, int E,
     int N, int A, int S, int G, int K, int out_w, int wide, void* stream) {
-  const int smem = obs_tail_v2::smem_bytes(HP, WPC, K, S);
+  const int smem = obs_tail::smem_bytes(HP, WPC, K, S);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         obs_tail_dynobj_v2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  obs_tail_dynobj_v2_kernel<<<E, obs_tail_v2::block_threads(A), smem, (cudaStream_t)stream>>>(
+  obs_tail_dynobj_v2_kernel<<<E, obs_tail::block_threads(A), smem, (cudaStream_t)stream>>>(
       (const int*)rext, (const int*)lext, (const int*)words, (const int*)row0, (const int*)lane0,
       (const int*)gplus, (const int*)geom, (int*)out, (int*)attempted, HP, WPC, N, A, S, G, K,
       out_w, wide);

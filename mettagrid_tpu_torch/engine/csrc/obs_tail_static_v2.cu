@@ -7,7 +7,7 @@
 // What it computes, per env e and agent a:
 //   img   = static_imgp[map_idx[e]]  (+1-encoded token words, 0 = empty),
 //           plus every agent's S words added at (rext, lext + s);
-//   then the v2 tail of obs_tail_v2_tail.cuh: the G globals and the window
+//   then the v2 tail of obs_tail.cuh: the G globals and the window
 //   candidates, valid when > 0, front-compacted into packed words, and the
 //   attempted counts.
 //
@@ -27,7 +27,7 @@
 #include <stdint.h>
 #include <stdio.h>
 
-#include "obs_tail_v2_tail.cuh"
+#include "obs_tail.cuh"
 
 namespace {
 
@@ -63,7 +63,7 @@ __global__ void obs_tail_static_v2_kernel(
   const int4* src = reinterpret_cast<const int4*>(static_imgp + (size_t)m * n_img);
   int4* dst = reinterpret_cast<int4*>(img);
   for (int i = tid; i < n_img / 4; i += blockDim.x) dst[i] = src[i];
-  obs_tail_v2::load_tables(geom, K, S, tab);
+  obs_tail::load_tables(geom, K, S, tab);
   __syncthreads();
 
   // ---- add the agents' words (agents never share a cell; atomics keep the
@@ -80,7 +80,8 @@ __global__ void obs_tail_static_v2_kernel(
   }
   __syncthreads();
 
-  obs_tail_v2::agents(img, tab, HP, WPC, K * S, row0, lane0, gplus, out, attempted, e, A, G, out_w, wide);
+  obs_tail::agents(obs_tail::V2Words(wide), img, tab, HP, WPC, K * S, row0, lane0, gplus, out,
+                   attempted, e, A, G, out_w);
 }
 
 }  // namespace
@@ -91,13 +92,13 @@ extern "C" int obs_tail_static_v2_launch(
     const void* rext, const void* lext, const void* words, const void* gplus, const void* geom,
     void* out, void* attempted, int P, int HP, int WPC, int E, int A, int S, int G, int K,
     int out_w, int wide, void* stream) {
-  const int smem = obs_tail_v2::smem_bytes(HP, WPC, K, S);
+  const int smem = obs_tail::smem_bytes(HP, WPC, K, S);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         obs_tail_static_v2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
-  obs_tail_static_v2_kernel<<<E, obs_tail_v2::block_threads(A), smem, (cudaStream_t)stream>>>(
+  obs_tail_static_v2_kernel<<<E, obs_tail::block_threads(A), smem, (cudaStream_t)stream>>>(
       (const int*)static_imgp, (const int*)map_idx, (const int*)row0, (const int*)lane0,
       (const int*)rext, (const int*)lext, (const int*)words, (const int*)gplus, (const int*)geom,
       (int*)out, (int*)attempted, P, HP, WPC, A, S, G, K, out_w, wide);

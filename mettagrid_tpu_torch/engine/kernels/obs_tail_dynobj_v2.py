@@ -28,7 +28,7 @@ import ctypes
 import torch
 
 from mettagrid_tpu_torch.engine.kernels import build
-from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import _MAX_SMEM, add_words, tail_ref
+from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import MAX_SMEM, add_words, staged_smem_bytes, tail_ref
 
 
 def obs_tail_dynobj_v2_ref(rext, lext, words, row0, lane0, gplus, geom, HP: int, WPC: int, out_w: int, wide: bool = False):
@@ -64,9 +64,9 @@ def _check(rext, lext, words, row0, lane0, gplus, geom, HP, WPC, out_w):
         raise ValueError("obs_tail_dynobj_v2: empty batch, object set, agent set, slot set, image or output")
     if (HP * WPC) % 4:
         raise ValueError("obs_tail_dynobj_v2: the image must be a whole number of 16-byte rows")
-    smem = (HP * WPC + 3 * K * S) * 4
-    if smem > _MAX_SMEM:
-        raise ValueError(f"obs_tail_dynobj_v2: image + tables need {smem} bytes of shared memory (> {_MAX_SMEM})")
+    smem = staged_smem_bytes(HP, WPC, K, S)
+    if smem > MAX_SMEM:
+        raise ValueError(f"obs_tail_dynobj_v2: image + tables need {smem} bytes of shared memory (> {MAX_SMEM})")
 
 
 def obs_tail_dynobj_v2(rext, lext, words, row0, lane0, gplus, geom, HP: int, WPC: int, out_w: int, wide: bool = False):

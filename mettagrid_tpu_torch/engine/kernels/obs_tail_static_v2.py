@@ -35,7 +35,13 @@ from mettagrid_tpu_torch.engine.program import GLOBAL_LOCATION
 
 EMPTY_WORD = 0xFFFFFF
 # Shared memory one block may use on Hopper (bytes).
-_MAX_SMEM = 232448
+MAX_SMEM = 232448
+
+
+def staged_smem_bytes(HP: int, WPC: int, K: int, S: int) -> int:
+    """Shared memory of a kernel that stages one env's image int32[HP, WPC]
+    and the three candidate tables of K*S entries (B1, B2, B4)."""
+    return (HP * WPC + 3 * K * S) * 4
 
 
 def _packing(wide: bool):
@@ -43,23 +49,25 @@ def _packing(wide: bool):
 
 
 def add_words(img, HP: int, WPC: int, rext, lext, words):
-    """img int32[E, HP * WPC] plus, for each entity m, its S words at
-    (rext[e, m], lext[e, m] + s); positions outside the image add nothing."""
+    """Adds to img int32[E, HP * WPC], IN PLACE, each entity m's S words at
+    (rext[e, m], lext[e, m] + s); positions outside the image add nothing.
+    Returns img."""
     E, M, S = words.shape
     s_ = torch.arange(S, dtype=torch.int32, device=img.device)
     r = rext[..., None].expand(E, M, S)
     lane = lext[..., None] + s_
     on = (r >= 0) & (r < HP) & (lane >= 0) & (lane < WPC)
     at = torch.where(on, r * WPC + lane, 0).reshape(E, M * S).long()
-    return img.scatter_add(1, at, torch.where(on, words, 0).reshape(E, M * S))
+    return img.scatter_add_(1, at, torch.where(on, words, 0).reshape(E, M * S))
 
 
-def tail_ref(img, HP: int, WPC: int, row0, lane0, gplus, geom, S: int, out_w: int, wide: bool):
-    """The v2 tail over per-env images img int32[E, HP * WPC]: each agent's
-    G global words and window candidates, valid when > 0, front-compacted
-    into packed words (kernels B1 and B2 share it)."""
+def candidates(img, HP: int, WPC: int, row0, lane0, front, geom, S: int):
+    """Each agent's candidate cells int32[E, A, F + K*S] over per-env images
+    img int32[E, HP * WPC]: the F ``front`` words, then the image at
+    (row0 + u_k, lane0 + v_k*S + s) in Manhattan order (cells outside the
+    image read 0), and the location byte of each candidate (0xFE for the
+    front words)."""
     E, A = row0.shape
-    G = gplus.shape[2]
     dev = row0.device
     i32 = torch.int32
     s_ = torch.arange(S, dtype=i32, device=dev)
@@ -71,22 +79,35 @@ def tail_ref(img, HP: int, WPC: int, row0, lane0, gplus, geom, S: int, out_w: in
     KS = du.shape[0]
     at = torch.where(inside, rr * WPC + ll, 0).reshape(E, A * KS).long()
     cand = torch.where(inside, img.gather(1, at).reshape(E, A, KS), 0)
+    F = front.shape[2]
+    loc = torch.cat([torch.full((F,), GLOBAL_LOCATION, dtype=i32, device=dev), geom[:, 2].repeat_interleave(S)])
+    return torch.cat([front, cand], dim=-1), loc
 
-    cells = torch.cat([gplus, cand], dim=-1)  # [E, A, G + KS]
+
+def compact_ref(word, ok, width: int, fill: int):
+    """The valid words of each row front-compacted stably into int32[E, A,
+    width] (``fill`` elsewhere; ranks past width are dropped)."""
+    E, A, _ = word.shape
+    rank = ok.cumsum(dim=-1) - 1
+    dest = torch.where(ok & (rank < width), rank, width)  # column width collects the rest
+    out = torch.full((E, A, width + 1), fill, dtype=torch.int32, device=word.device)
+    out.scatter_(2, dest, word)
+    return out[..., :width].contiguous()
+
+
+def tail_ref(img, HP: int, WPC: int, row0, lane0, gplus, geom, S: int, out_w: int, wide: bool):
+    """The v2 tail over per-env images img int32[E, HP * WPC]: each agent's
+    G global words and window candidates, valid when > 0, front-compacted
+    into packed words (kernels B1, B2 and B3 share it)."""
+    cells, loc = candidates(img, HP, WPC, row0, lane0, gplus, geom, S)  # [E, A, G + KS]
     ok = cells > 0
-    attempted = ok.sum(dim=-1, dtype=i32)
-    loc = torch.cat([torch.full((G,), GLOBAL_LOCATION, dtype=i32, device=dev), geom[:, 2].repeat_interleave(S)])
     loc_sh, feat_mask = _packing(wide)
     packed = (cells - 1) | (loc << loc_sh)
     loc_field = (packed >> loc_sh) & 0xFF
     word = torch.where(
         loc_field == 0xFF, EMPTY_WORD, loc_field | (packed & feat_mask) | ((packed & 0xFF) << 16)
     )
-    rank = ok.cumsum(dim=-1) - 1
-    dest = torch.where(ok & (rank < out_w), rank, out_w)  # column out_w collects the rest
-    out = torch.full((E, A, out_w + 1), EMPTY_WORD, dtype=i32, device=dev)
-    out.scatter_(2, dest, word)
-    return out[..., :out_w].contiguous(), attempted
+    return compact_ref(word, ok, out_w, EMPTY_WORD), ok.sum(dim=-1, dtype=torch.int32)
 
 
 def obs_tail_static_v2_ref(static_imgp, map_idx, row0, lane0, rext, lext, words, gplus, geom, out_w: int, wide: bool = False):
@@ -98,38 +119,41 @@ def obs_tail_static_v2_ref(static_imgp, map_idx, row0, lane0, rext, lext, words,
     return tail_ref(img, HP, WPC, row0, lane0, gplus, geom, words.shape[2], out_w, wide)
 
 
-def _check(static_imgp, map_idx, row0, lane0, rext, lext, words, gplus, geom, out_w):
+def check_static_inputs(name, static_imgp, map_idx, row0, lane0, rext, lext, words, front, geom, out_w):
+    """The checks B1's and B4's wrappers share: one device, int32,
+    contiguous, matching shapes, non-empty, an image that B1's staging loads
+    and that fits shared memory with the tables."""
     dev = static_imgp.device
     named = dict(
         static_imgp=static_imgp, map_idx=map_idx, row0=row0, lane0=lane0, rext=rext,
-        lext=lext, words=words, gplus=gplus, geom=geom,
+        lext=lext, words=words, globals=front, geom=geom,
     )
-    for name, t in named.items():
+    for arg, t in named.items():
         if t.device != dev:
-            raise ValueError(f"obs_tail_static_v2: {name} is on {t.device}, static_imgp on {dev}")
+            raise ValueError(f"{name}: {arg} is on {t.device}, static_imgp on {dev}")
         if t.dtype != torch.int32:
-            raise TypeError(f"obs_tail_static_v2: {name} must be int32, got {t.dtype}")
+            raise TypeError(f"{name}: {arg} must be int32, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"obs_tail_static_v2: {name} must be contiguous")
-    if static_imgp.dim() != 3 or row0.dim() != 2 or words.dim() != 3 or gplus.dim() != 3 or geom.dim() != 2:
-        raise ValueError("obs_tail_static_v2: wrong ranks")
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    if static_imgp.dim() != 3 or row0.dim() != 2 or words.dim() != 3 or front.dim() != 3 or geom.dim() != 2:
+        raise ValueError(f"{name}: wrong ranks")
     P, HP, WPC = static_imgp.shape
     E, A = row0.shape
-    S, G, K = words.shape[2], gplus.shape[2], geom.shape[0]
-    for name, t, shape in (
+    S, G, K = words.shape[2], front.shape[2], geom.shape[0]
+    for arg, t, shape in (
         ("map_idx", map_idx, (E,)), ("lane0", lane0, (E, A)), ("rext", rext, (E, A)),
-        ("lext", lext, (E, A)), ("words", words, (E, A, S)), ("gplus", gplus, (E, A, G)),
+        ("lext", lext, (E, A)), ("words", words, (E, A, S)), ("globals", front, (E, A, G)),
         ("geom", geom, (K, 3)),
     ):
         if tuple(t.shape) != shape:
-            raise ValueError(f"obs_tail_static_v2: {name} has shape {tuple(t.shape)}, expected {shape}")
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {shape}")
     if P < 1 or E < 1 or A < 1 or S < 1 or out_w < 1:
-        raise ValueError("obs_tail_static_v2: empty pool, batch, agent set, slot set or output")
+        raise ValueError(f"{name}: empty pool, batch, agent set, slot set or output")
     if (HP * WPC) % 4 or static_imgp.data_ptr() % 16:
-        raise ValueError("obs_tail_static_v2: the image must be a whole number of 16-byte rows, 16-byte aligned")
-    smem = (HP * WPC + 3 * K * S) * 4
-    if smem > _MAX_SMEM:
-        raise ValueError(f"obs_tail_static_v2: image + tables need {smem} bytes of shared memory (> {_MAX_SMEM})")
+        raise ValueError(f"{name}: the image must be a whole number of 16-byte rows, 16-byte aligned")
+    smem = staged_smem_bytes(HP, WPC, K, S)
+    if smem > MAX_SMEM:
+        raise ValueError(f"{name}: image + tables need {smem} bytes of shared memory (> {MAX_SMEM})")
 
 
 def obs_tail_static_v2(static_imgp, map_idx, row0, lane0, rext, lext, words, gplus, geom, out_w: int, wide: bool = False):
@@ -140,7 +164,7 @@ def obs_tail_static_v2(static_imgp, map_idx, row0, lane0, rext, lext, words, gpl
         return obs_tail_static_v2_ref(static_imgp, map_idx, row0, lane0, rext, lext, words, gplus, geom, out_w, wide)
     if static_imgp.device.type != "cuda":
         raise ValueError(f"obs_tail_static_v2 runs on CUDA or CPU tensors, not {static_imgp.device}")
-    _check(static_imgp, map_idx, row0, lane0, rext, lext, words, gplus, geom, out_w)
+    check_static_inputs("obs_tail_static_v2", static_imgp, map_idx, row0, lane0, rext, lext, words, gplus, geom, out_w)
     P, HP, WPC = static_imgp.shape
     E, A = row0.shape
     S, G, K = words.shape[2], gplus.shape[2], geom.shape[0]

@@ -1,23 +1,31 @@
-"""Token observations through the fused v2 tail.
+"""Token observations through the fused tails.
 
-Counterpart of the reference's engine/obs.py, reduced to its fused v2 routes:
+Counterpart of the reference's engine/obs.py, reduced to its fused routes
+(make_obs_fn picks one from the program's static shapes):
 
 * static background (the arena and combat presets): every non-agent object is
   provably inert (static_background_ok), so its token image is built once per
-  pooled map, and each step encodes only the agents' tokens and runs kernel
-  B1 (engine/kernels/obs_tail_static_v2.py) over the pooled image;
+  pooled map, and each step encodes only the agents' tokens. Kernel B1
+  (engine/kernels/obs_tail_static_v2.py) runs the v2 tail over the pooled
+  image, kernel B4 (obs_tail_static_v1.py) the v1 tail;
 * mutable background (the general preset): each step encodes every object's
-  tokens and runs kernel B2 (engine/kernels/obs_tail_dynobj_v2.py), which
-  builds each env's image from the object tables and runs B1's tail on it.
+  tokens, and kernel B2 (obs_tail_dynobj_v2.py) builds each env's image from
+  the object tables and runs B1's tail on it;
+* an env image built here, in device memory: for maps whose image is too
+  large for one block's shared memory (kernel B3, obs_tail_dyn_v2.py, v2
+  tail) and for mutable backgrounds off the v2 gate (kernel B5,
+  obs_tail_v1.py, v1 tail).
+
+The v2 tail serves configs whose globals are always present; the v1 tail
+also takes globals that can be absent (local position, value observations).
 
 Token format (reference: core/grid_object.hpp:36-47): [packed_location,
 feature_id, value] uint8; empty = 0xFF, global = 0xFE. Candidate order
 within a cell: tags ascending, vibe, inventory digits, protocol recipe
 quantities, group, agent id; cells in Manhattan order; globals first.
 
-Configs off these routes (an AOE mask, value observations, globals that can
-be invalid, or geometry outside the fused tail's gate) raise
-NotImplementedError: ROADMAP Queue 1 item 10 and Queue 2.
+Configs off these routes (an AOE mask, or window rows wider than 128 lanes)
+raise NotImplementedError: ROADMAP Queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -25,8 +33,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mettagrid_tpu_torch.engine.kernels.obs_tail_dyn_v2 import obs_tail_dyn_v2
 from mettagrid_tpu_torch.engine.kernels.obs_tail_dynobj_v2 import obs_tail_dynobj_v2
-from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import obs_tail_static_v2
+from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v1 import obs_tail_static_v1
+from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import (
+    MAX_SMEM,
+    add_words,
+    obs_tail_static_v2,
+    staged_smem_bytes,
+)
+from mettagrid_tpu_torch.engine.kernels.obs_tail_v1 import obs_tail_v1
 from mettagrid_tpu_torch.engine.obs_caps import compute_obs_caps, max_tokens_per_object, max_window_tokens
 from mettagrid_tpu_torch.engine.program import EMPTY_TOKEN_BYTE, EngineProgram, pack_coordinate
 from mettagrid_tpu_torch.engine.state import EnvState, resolve_device
@@ -210,6 +226,20 @@ def make_stage1(program: EngineProgram):
     return stage1
 
 
+def _scatter_cells(tok, cnt, alive, obj_r, obj_c, H: int, W: int) -> torch.Tensor:
+    """Stage 2 (the reference's make_cell_image_fn._cell_image, in integer
+    ops): every object's S words and its token count summed into its cell of
+    int32[B, H+1, W, S+1]; dead objects land on the padding row H."""
+    B, M, S = tok.shape
+    dev = tok.device
+    rr = torch.where(alive, obj_r, H).long()
+    cc = torch.where(alive, obj_c, 0).long()
+    bb = torch.arange(B, device=dev)[:, None].expand(B, M)
+    img = torch.zeros((B, H + 1, W, S + 1), dtype=torch.int32, device=dev)
+    img.index_put_((bb, rr, cc), torch.cat([tok, cnt[..., None]], dim=-1), accumulate=True)
+    return img
+
+
 def build_static_bg(program: EngineProgram, init, device=None) -> torch.Tensor:
     """The static (non-agent) cell image of every pooled map:
     int32[P, H+1, W, S+1] (S token words, then the token count; dead objects
@@ -219,9 +249,7 @@ def build_static_bg(program: EngineProgram, init, device=None) -> torch.Tensor:
     function of make_obs_fn runs where this image lies."""
     device = resolve_device(device)
     stage1 = make_stage1(program)
-    S = stage1.num_slots
     A = program.num_agents
-    H, W = program.height, program.width
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -234,12 +262,16 @@ def build_static_bg(program: EngineProgram, init, device=None) -> torch.Tensor:
         t(init.obj_type), t(init.obj_vibe), t(init.obj_tags), t(init.obj_inv), alive,
         torch.zeros((Pm, Np), dtype=torch.bool, device=device), zeros, slot,
     )
-    rr = torch.where(alive, t(init.obj_r), H).long()
-    cc = torch.where(alive, t(init.obj_c), 0).long()
-    pp = torch.arange(Pm, device=device)[:, None].expand(Pm, Np)
-    img = torch.zeros((Pm, H + 1, W, S + 1), dtype=torch.int32, device=device)
-    img.index_put_((pp, rr, cc), torch.cat([tok, cnt[..., None]], dim=-1), accumulate=True)
-    return img
+    return _scatter_cells(tok, cnt, alive, t(init.obj_r), t(init.obj_c), program.height, program.width)
+
+
+def tail_route(v2_ok: bool, static: bool, fits: bool) -> str:
+    """The tail kernel of make_obs_fn's table: "B1" to "B5", from the v2
+    gate, the background kind and whether one env's image and the candidate
+    tables fit one block's shared memory."""
+    if v2_ok:
+        return ("B1" if static else "B2") if fits else "B3"
+    return "B4" if static and fits else "B5"
 
 
 def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=None):
@@ -247,20 +279,45 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
     tokens_attempted int32[E, A]).
 
     static_bg: build_static_bg's pooled image where static_background_ok
-    holds (kernel B1, on the image's device), or None for the mutable
-    background (kernel B2 on ``device``, which defaults to CUDA and raises
+    holds (the obs function then runs on the image's device), or None for
+    the mutable background (on ``device``, which defaults to CUDA and raises
     when there is none).
 
-    obs_buf: optional carried uint8[E, A, T, 3] buffer from the previous
-    step or reset. Token ranks at or past the tail's proven prefix width
-    OUT_W are impossible (obs_caps window bound), so when a buffer is given
-    only its first OUT_W token slots are rewritten, IN PLACE, and the buffer
-    itself is returned. Any other buffer must already hold EMPTY bytes past
-    the prefix.
+    The tail kernel is chosen here, from the program's static shapes
+    (reference obs.py:525-543, 808-842, 931-1021):
 
-    obs_fn.tail_inputs(state) gives the keyword arguments of the kernel call
-    for ``state`` (without out_w/wide, which are obs_fn.out_w / obs_fn.wide);
-    obs_fn.tail is the kernel's wrapper."""
+    ========== ======= ==================== ======
+    background v2 gate image fits a block    kernel
+    ========== ======= ==================== ======
+    static     passes  yes                  B1
+    static     passes  no                   B3
+    static     fails   yes                  B4
+    static     fails   no                   B5
+    mutable    passes  yes                  B2
+    mutable    passes  no                   B3
+    mutable    fails   either               B5
+    ========== ======= ==================== ======
+
+    The v2 gate wants always-valid globals (no local position, no value
+    observations), feature ids that fit its packing and a window of at most
+    16 rows; the v1 tail (B4, B5) takes the rest whose window rows are at
+    most 128 lanes wide (OW * S <= 128). An image fits a block when one env's
+    padded image and the candidate tables need at most the 232,448 bytes of
+    shared memory an H100 block may use (MAX_SMEM); B3 and B5 read an image
+    built beforehand from device memory instead.
+
+    obs_buf: optional carried uint8[E, A, T, 3] buffer from the previous
+    step or reset. On the v2 routes (B1, B2, B3) token ranks at or past the
+    tail's proven prefix width OUT_W are impossible (obs_caps window bound),
+    so when a buffer is given only its first OUT_W token slots are
+    rewritten, IN PLACE, and the buffer itself is returned; any other buffer
+    must already hold EMPTY bytes past the prefix. The v1 routes (B4, B5)
+    write all T token slots into a new tensor, as the reference does.
+
+    obs_fn.tail is the kernel's wrapper; obs_fn.tail_inputs(state) gives its
+    keyword arguments for ``state`` but out_w and wide, which are
+    obs_fn.out_w and obs_fn.wide (None on the v1 routes, whose wrappers take
+    no packing)."""
     A = program.num_agents
     T = program.num_tokens
     feat = program.feature_ids
@@ -268,6 +325,7 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
     OH, OW = program.obs_height, program.obs_width
     K = len(program.window_offsets)
     hr, wr = OH // 2, OW // 2
+    base = program.token_value_base
     caps = compute_obs_caps(program)
     stage1 = make_stage1(program)
     S = stage1.num_slots
@@ -278,7 +336,7 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
     uv_of_k = np.stack([off[:, 0] + hr, off[:, 1] + wr], axis=1)
     loc_k = np.array([pack_coordinate(u, v) for u, v in uv_of_k], dtype=np.int32)
 
-    # ---- global slots (order: mettagrid_c.cpp:700-742) ----
+    # ---- global slots (order: mettagrid_c.cpp:700-752) ----
     g = program.global_obs
     global_slots = [
         name
@@ -293,6 +351,7 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
         if on
     ]
     G = len(global_slots)
+    GP = G + sum(len(fids) for _, fids, _ in program.value_obs)  # global lanes incl. value digits
     global_fids = {
         "epct": feat.episode_completion_pct,
         "last_action": feat.last_action,
@@ -302,46 +361,64 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
         "lp_ns": max(feat.lp_north, feat.lp_south),
     }
 
-    # ---- the fused tail's gate and geometry (reference obs.py:474-579) ----
+    # ---- the gates (reference obs.py:474-579) ----
     OWS = OW * S
     KS = K * S
-    KS_pad2 = ((G + KS + 127) // 128) * 128  # candidate lanes incl. globals
+    KS_pad2 = ((G + KS + 127) // 128) * 128  # v2 candidate lanes incl. globals
     has_aoe_mask = feat.aoe_mask != 0 and bool(program.territories)
     feat_max = max([int(cand_feat.max()) if cand_feat.size else 0] + [int(global_fids[s]) for s in global_slots])
     wide = KS_pad2 > 512
-    gate = (
+    v2_common = (
         not has_aoe_mask
         and not program.value_obs
         and all(slot in _ALWAYS_VALID_GLOBALS for slot in global_slots)
         and all(int(loc) != 0xFF for loc in loc_k)
         and OH <= _V2_RPE
         and OWS <= 128
-        and ((not wide and feat_max < 128) or (wide and feat_max < 64 and KS_pad2 <= 1024))
     )
-    if not gate:
+    v2_ok = v2_common and ((not wide and feat_max < 128) or (wide and feat_max < 64 and KS_pad2 <= 1024))
+    if has_aoe_mask:
         raise NotImplementedError(
-            "this config is outside the fused v2 tail's gate (AOE mask, value observations, "
-            "globals that may be invalid, wide feature ids or window geometry); its tail is not "
-            "ported yet (ROADMAP Queue 2)"
+            "AOE mask tokens take the non-fused observation path, which is not ported yet (ROADMAP Queue 1 item 10)"
         )
-    # Provable output-prefix width: ranks >= G + max_window_tokens never occur.
+    if not v2_ok and OWS > 128:
+        raise NotImplementedError(
+            f"window rows of {OWS} lanes (OW * S > 128) are outside both fused tails' gates; the non-fused "
+            "observation path is not ported yet (ROADMAP Queue 1 item 10)"
+        )
+    # v2: provable output-prefix width, ranks >= G + max_window_tokens never occur.
     OUT_W = min(KS_pad2, max(((min(G + max_window_tokens(program, caps, K), T) + 127) // 128) * 128, 128))
+    # v1: the budget, clamped at the candidate lanes (pallas_kernels.py:252).
+    T_pad = min(((T + 127) // 128) * 128, GP + ((KS + 127) // 128) * 128)
     RP_f = ((max(OH, 8) + 7) // 8) * 8
     HP_f = ((max(H + OH, H + RP_f, H - 1 + _V2_RPE) + 7) // 8) * 8
     WPC_f = (((W + OW) * S + 127) // 128) * 128
+    static = static_bg is not None
+    route = tail_route(v2_ok, static, staged_smem_bytes(HP_f, WPC_f, K, S) <= MAX_SMEM)
 
-    dev = static_bg.device if static_bg is not None else resolve_device(device)
+    dev = static_bg.device if static else resolve_device(device)
     geom = torch.from_numpy(
         np.concatenate([uv_of_k, loc_k[:, None]], axis=1).astype(np.int32)
     ).to(dev)
     slot_range = torch.arange(S, dtype=torch.int32, device=dev)
 
     def global_plus(state: EnvState):
-        """+1-encoded global words fid << 8 | value (all valid by the gate)."""
+        """int32[E, A, GP]: the +1-encoded global words fid << 8 | value, 0
+        where the token is absent (reference _global_tokens,
+        _all_global_words and _global_plus, obs.py:453-472, 660-663,
+        1340-1388)."""
         E = state.obj_type.shape[0]
         step = state.step_count[:, None]
+        agent_r = state.obj_r[:, :A]
+        agent_c = state.obj_c[:, :A]
         cols = []
+
+        def word(fid, val, ok=None):
+            w = (((fid << 8) | (val & 0xFF)) & 0xFFFF) + 1
+            cols.append(w if ok is None else torch.where(ok, w, 0))
+
         for slot in global_slots:
+            fid = global_fids[slot]
             if slot == "epct":
                 if program.max_steps > 0:
                     pct = torch.where(
@@ -350,81 +427,138 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
                     )
                 else:
                     pct = torch.zeros_like(step)
-                val = pct.expand(E, A)
+                word(fid, pct.expand(E, A))
             elif slot == "last_action":
-                val = state.agent_last_action
+                word(fid, state.agent_last_action)
             elif slot == "last_action_move":
-                moved = (state.obj_r[:, :A] != state.agent_prev_r) | (state.obj_c[:, :A] != state.agent_prev_c)
-                val = moved.to(torch.int32)
-            else:  # last_reward
-                val = torch.round(state.rewards * 100.0).to(torch.int32)
-            cols.append(((global_fids[slot] << 8) | (val & 0xFF)) + 1)
+                moved = (agent_r != state.agent_prev_r) | (agent_c != state.agent_prev_c)
+                word(fid, moved.to(torch.int32))
+            elif slot == "last_reward":
+                word(fid, torch.round(state.rewards * 100.0).to(torch.int32))
+            else:  # local position: absent on the spawn row / column
+                east_west = slot == "lp_ew"
+                d = agent_c - state.agent_spawn_c if east_west else state.agent_spawn_r - agent_r
+                hi, lo = (feat.lp_east, feat.lp_west) if east_west else (feat.lp_north, feat.lp_south)
+                fid_d = torch.where(d > 0, hi, lo).to(torch.int32)
+                word(fid_d, d.abs().clamp(max=255), d != 0)
+        if program.value_obs:
+            from mettagrid_tpu_torch.engine.exec import eval_value
+
+            slots = torch.arange(A, dtype=torch.int32, device=dev)[None, :].expand(E, A)
+            for _name, fids, cv in program.value_obs:
+                amount = eval_value(program, state, cv, slots).clamp(min=0.0).floor().to(torch.int32)
+                for p, fid in enumerate(fids):
+                    div = base**p
+                    digit = torch.remainder(torch.div(amount, div, rounding_mode="floor"), base)
+                    word(fid, digit, amount >= max(div, 1))
         if not cols:
             return torch.zeros((E, A, 0), dtype=torch.int32, device=dev)
-        return torch.stack(cols, dim=-1).to(torch.int32)
+        return torch.stack(cols, dim=-1).to(torch.int32).contiguous()
 
     def plus_words(tok, cnt):
         """+1-encoded token words: tok + 1 on the cnt live slots, 0 after."""
         return tok + (slot_range < cnt[..., None]).to(torch.int32)
 
-    if static_bg is not None:
+    def padded(cells):
+        """Cell images int32[B, H+1, W, S+1] as +1-encoded padded images
+        int32[B, HP_f, WPC_f] (reference obs.py:1159-1170)."""
+        B = cells.shape[0]
+        body = plus_words(cells[..., :S], cells[..., S])[:, :H].reshape(B, H, W * S)
+        out = torch.zeros((B, HP_f, WPC_f), dtype=torch.int32, device=cells.device)
+        out[:, hr : hr + H, wr * S : (wr + W) * S] = body
+        return out
+
+    def agent_inputs(state: EnvState) -> dict:
+        """Window starts and the agents' image positions and +1-encoded words."""
+        E = state.obj_type.shape[0]
+        agent_r = state.obj_r[:, :A]
+        agent_c = state.obj_c[:, :A]
+        slots_a = torch.arange(A, dtype=torch.int32, device=dev)[None, :].expand(E, A)
+        tok_a, cnt_a = stage1(
+            state.obj_type[:, :A], state.obj_vibe[:, :A], state.obj_tags[:, :A],
+            state.obj_inv[:, :A], state.obj_alive[:, :A],
+            torch.ones((E, A), dtype=torch.bool, device=dev),  # slots < A are agents
+            state.agent_group, slots_a,
+        )
+        return dict(
+            row0=agent_r.contiguous(),
+            lane0=(agent_c * S).contiguous(),
+            rext=(agent_r + hr).contiguous(),
+            lext=((agent_c + wr) * S).contiguous(),
+            words=plus_words(tok_a, cnt_a).contiguous(),
+        )
+
+    def object_tokens(state: EnvState):
+        """Stage 1 over every object slot (reference obs.py:1023-1071, 1102-1120);
+        dead objects get no tokens."""
+        E, N = state.obj_type.shape
+        slots_n = torch.arange(N, dtype=torch.int32, device=dev)[None, :].expand(E, N)
+        return stage1(
+            state.obj_type, state.obj_vibe, state.obj_tags, state.obj_inv, state.obj_alive,
+            slots_n < A,  # slots < A are agents
+            torch.nn.functional.pad(state.agent_group, (0, N - A)), slots_n,
+        )
+
+    if static:
         # ---- prepadded +1-encoded static pool, int32[P, HP_f, WPC_f] ----
-        Pm = static_bg.shape[0]
-        body = plus_words(static_bg[..., :S], static_bg[..., S])[:, :H].reshape(Pm, H, W * S)
-        static_imgp = torch.zeros((Pm, HP_f, WPC_f), dtype=torch.int32, device=dev)
-        static_imgp[:, hr : hr + H, wr * S : (wr + W) * S] = body
-        tail = obs_tail_static_v2
+        static_imgp = padded(static_bg)
+
+        def image(state: EnvState):
+            """Each env's padded image, int32[E, HP_f, WPC_f]: its pooled map
+            plus the agents' words (reference obs.py:996-1021)."""
+            E = state.obj_type.shape[0]
+            a = agent_inputs(state)
+            img = static_imgp[state.map_idx.long()]
+            add_words(img.view(E, HP_f * WPC_f), HP_f, WPC_f, a["rext"], a["lext"], a["words"])
+            return img, a
+    else:
+
+        def image(state: EnvState):
+            """Each env's padded image, int32[E, HP_f, WPC_f], from the cell
+            image of every object (reference obs.py:1102-1120, 1159-1170)."""
+            tok_n, cnt_n = object_tokens(state)
+            cells = _scatter_cells(tok_n, cnt_n, state.obj_alive, state.obj_r, state.obj_c, H, W)
+            a = dict(row0=state.obj_r[:, :A].contiguous(), lane0=(state.obj_c[:, :A] * S).contiguous())
+            return padded(cells), a
+
+    if route in ("B1", "B4"):
+        tail = obs_tail_static_v2 if route == "B1" else obs_tail_static_v1
+        front = "gplus" if route == "B1" else "gwords"
 
         def tail_inputs(state: EnvState) -> dict:
-            E = state.obj_type.shape[0]
-            agent_r = state.obj_r[:, :A]
-            agent_c = state.obj_c[:, :A]
-            slots_a = torch.arange(A, dtype=torch.int32, device=dev)[None, :].expand(E, A)
-            tok_a, cnt_a = stage1(
-                state.obj_type[:, :A], state.obj_vibe[:, :A], state.obj_tags[:, :A],
-                state.obj_inv[:, :A], state.obj_alive[:, :A],
-                torch.ones((E, A), dtype=torch.bool, device=dev),  # slots < A are agents
-                state.agent_group, slots_a,
-            )
             return dict(
-                static_imgp=static_imgp,
-                map_idx=state.map_idx.contiguous(),
-                row0=agent_r.contiguous(),
-                lane0=(agent_c * S).contiguous(),
-                rext=(agent_r + hr).contiguous(),
-                lext=((agent_c + wr) * S).contiguous(),
-                words=plus_words(tok_a, cnt_a).contiguous(),
-                gplus=global_plus(state).contiguous(),
-                geom=geom,
+                static_imgp=static_imgp, map_idx=state.map_idx.contiguous(), **agent_inputs(state),
+                **{front: global_plus(state)}, geom=geom,
             )
-    else:
+    elif route == "B2":
         tail = obs_tail_dynobj_v2
 
         def tail_inputs(state: EnvState) -> dict:
-            # Stage 1 over every object slot (reference obs.py:1023-1071);
-            # dead objects get no tokens, so their words are 0.
-            E, N = state.obj_type.shape
-            slots_n = torch.arange(N, dtype=torch.int32, device=dev)[None, :].expand(E, N)
-            tok_n, cnt_n = stage1(
-                state.obj_type, state.obj_vibe, state.obj_tags, state.obj_inv, state.obj_alive,
-                slots_n < A,  # slots < A are agents
-                torch.nn.functional.pad(state.agent_group, (0, N - A)), slots_n,
-            )
+            tok_n, cnt_n = object_tokens(state)
             return dict(
                 rext=(state.obj_r + hr).contiguous(),
                 lext=((state.obj_c + wr) * S).contiguous(),
                 words=plus_words(tok_n, cnt_n).contiguous(),
                 row0=state.obj_r[:, :A].contiguous(),
                 lane0=(state.obj_c[:, :A] * S).contiguous(),
-                gplus=global_plus(state).contiguous(),
+                gplus=global_plus(state),
                 geom=geom,
                 HP=HP_f,
                 WPC=WPC_f,
             )
+    else:  # B3, B5: the image built here, read by the kernel from device memory
+        tail = obs_tail_dyn_v2 if route == "B3" else obs_tail_v1
+        front = "gplus" if route == "B3" else "gwords"
 
-    def unpack_words(out_words, obs_buf):
-        """Token words (loc | feat << 8 | val << 16, 0xFFFFFF = empty) to
-        uint8 [loc, feature, value] triples over the T-token budget."""
+        def tail_inputs(state: EnvState) -> dict:
+            img, a = image(state)
+            return dict(
+                imgp=img, row0=a["row0"], lane0=a["lane0"], **{front: global_plus(state)}, geom=geom, S=S,
+            )
+
+    def unpack_v2(out_words, obs_buf):
+        """v2 words (loc | feat << 8 | val << 16, 0xFFFFFF = empty) to uint8
+        [loc, feature, value] triples over the T-token budget."""
         E = out_words.shape[0]
         ow = min(out_words.shape[-1], T)
         # Little-endian bytes of each word are exactly (loc, feature, value, 0).
@@ -443,12 +577,35 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
         out[:, :, :ow] = triples
         return out
 
-    def obs_fn(state: EnvState, obs_buf=None):
-        out_words, attempted = tail(**tail_inputs(state), out_w=OUT_W, wide=wide)
-        return unpack_words(out_words, obs_buf), attempted
+    def unpack_v1(out_words):
+        """v1 words ((feat << 8 | val) | loc << 16, -1 = empty) to uint8
+        [loc, feature, value] triples over all T token slots (reference
+        _unpack_words with empty_mapped=False, obs.py:665-721)."""
+        E = out_words.shape[0]
+        w = out_words[..., :T]
+        if w.shape[-1] < T:
+            w = torch.nn.functional.pad(w, (0, T - w.shape[-1]), value=-1)
+        # Byte-swap so the little-endian bytes read (w >> 16, w >> 8, w) & 0xFF;
+        # -1 (empty) gives 0xFF in each, the EMPTY token.
+        swapped = ((w & 0xFF) << 16) | (w & 0xFF00) | ((w >> 16) & 0xFF)
+        return swapped.view(torch.uint8).reshape(E, A, T, 4)[..., :3].contiguous()
+
+    if route in ("B1", "B2", "B3"):
+
+        def obs_fn(state: EnvState, obs_buf=None):
+            out_words, attempted = tail(**tail_inputs(state), out_w=OUT_W, wide=wide)
+            return unpack_v2(out_words, obs_buf), attempted
+
+        obs_fn.out_w, obs_fn.wide = OUT_W, wide
+    else:
+
+        def obs_fn(state: EnvState, obs_buf=None):
+            out_words, attempted = tail(**tail_inputs(state), out_w=T_pad)
+            return unpack_v1(out_words), attempted
+
+        obs_fn.out_w, obs_fn.wide = T_pad, None
 
     obs_fn.tail = tail
     obs_fn.tail_inputs = tail_inputs
-    obs_fn.out_w = OUT_W
-    obs_fn.wide = wide
+    obs_fn.route = route
     return obs_fn

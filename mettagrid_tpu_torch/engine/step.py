@@ -9,7 +9,10 @@ observations -> coverage, visited and token stats -> rewards -> truncation.
 This port covers programs without on_tick handlers, AOE or territories
 whose action phase is the wave phase (the arena, combat and general presets):
 pure-move waves or footprint-scheduled handler-chain waves, events, and
-observations over a static or a mutable background. Other programs raise
+observations over a static or a mutable background through every fused tail
+but the opt-in v3 one (engine/obs.py: globals that can be absent, such as
+local position and value observations, and maps whose image is too large
+for one block's shared memory included). Other programs raise
 NotImplementedError naming the ROADMAP item that ports them. Every phase
 works out of place: a step never writes the tensors of the state it was
 given (the one exception is the carried observation buffer, see make_step).
@@ -420,8 +423,12 @@ def make_step(
     torch.Generator on the device; by default one seeded with 0).
 
     obs_buf: optional carried uint8[E, A, T, 3] observation buffer from the
-    previous step or reset; its first OUT_W token slots are rewritten IN
-    PLACE and it is returned as the observations (obs.make_obs_fn).
+    previous step or reset. On the v2 observation routes (kernels B1-B3)
+    its first OUT_W token slots are rewritten IN PLACE and it is returned as
+    the observations; the v1 routes (B4, B5: local position or value
+    observations on) ignore it and return a new tensor (obs.make_obs_fn).
+    Read the observations from the returned StepOutputs, never from the
+    buffer.
 
     reset_maps: optional int32[E] with values in [0, pool size): the map each
     env starts on if it auto-resets this step, in place of the draw from

@@ -10,8 +10,20 @@ Three variants, as bench.py:29-83 and 96-101 build them:
 * ``general``: the combat handlers without the starting inventory, plus a
   periodic event that grants hearts to walls, so the background is mutable.
 
-Each runs over a pool of random 25x25 maps whose seeds come from
-np.random.default_rng(0).
+and three that take the observation routes off the v2 fast path:
+
+* ``arena_lp``: the flagship with local-position tokens
+  (``global_obs.local_position``, absent on the spawn cell), so the v1 tail
+  over the static pool (kernel B4);
+* ``general_lp``: the general config with local-position tokens, so the v1
+  tail over a per-env image built from every object (kernel B5);
+* ``arena_128``: the flagship on 128x128 maps (border 1, the preset's 10
+  walls), whose padded image (144 x 512 words) is too large to stage in
+  shared memory, so the v2 tail over a per-env image in device memory
+  (kernel B3).
+
+Each runs over a pool of random maps (25x25 but for arena_128) whose seeds
+come from np.random.default_rng(0).
 """
 
 from __future__ import annotations
@@ -23,12 +35,13 @@ import torch
 
 from mettagrid_tpu_torch.builder import make_arena
 from mettagrid_tpu_torch.engine import build_env_init, compile_program, make_reset, make_step
+from mettagrid_tpu_torch.maps.random_map import RandomMapBuilder
 
 AGENTS = 24
 ENVS = 4096
 POOL = 64
 WARMUP = 8
-VARIANTS = ("flagship", "combat", "general")
+VARIANTS = ("flagship", "combat", "general", "arena_lp", "general_lp", "arena_128")
 
 
 def make_general_cfg(num_agents: int):
@@ -78,13 +91,19 @@ def make_combat_cfg(num_agents: int):
 
 
 def make_cfg(variant: str, num_agents: int = AGENTS):
-    if variant == "flagship":
-        return make_arena(num_agents, combat=False)
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
     if variant == "combat":
         return make_combat_cfg(num_agents)
-    if variant == "general":
-        return make_general_cfg(num_agents)
-    raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
+    if variant.startswith("general"):
+        cfg = make_general_cfg(num_agents)
+    elif variant == "arena_128":
+        cfg = make_arena(num_agents, combat=False, map_builder=RandomMapBuilder.Config(
+            agents=num_agents, width=128, height=128, border_width=1, objects={"wall": 10}))
+    else:
+        cfg = make_arena(num_agents, combat=False)
+    cfg.game.obs.global_obs.local_position = variant.endswith("_lp")
+    return cfg
 
 
 def build_pool(cfg, pool: int, max_steps: int | None = None):
@@ -105,9 +124,9 @@ def build_pool(cfg, pool: int, max_steps: int | None = None):
 class BenchRun:
     """One variant's main path on the CUDA device: ENVS envs x AGENTS agents,
     POOL maps, auto-reset on, the observation buffer carried from step to
-    step. Primary actions are uniform over the action space; for combat and
-    general the vibe actions are too (bench.py:190-200), for the flagship
-    they are 0. All draws, the agent orders and the event ranks come from
+    step. Primary actions are uniform over the action space; for the combat
+    and general configs the vibe actions are too (bench.py:190-200), for the
+    arena ones they are 0. All draws, the agent orders and the event ranks come from
     one CUDA generator seeded with ``seed``."""
 
     def __init__(self, variant: str, seed: int):
@@ -118,6 +137,7 @@ class BenchRun:
         self.reset = make_reset(self.program, init, ENVS)
         self.step = make_step(self.program, init, auto_reset=True, generator=self.generator)
         self._n_actions = len(self.program.action_names)
+        self._vibes = variant in ("combat", "general", "general_lp")
         self.last_actions = None
 
     def _draw(self):
@@ -130,7 +150,7 @@ class BenchRun:
         step's primary actions are kept in ``last_actions``."""
         for _ in range(n):
             acts = self._draw()
-            vibes = torch.zeros_like(acts) if self.variant == "flagship" else self._draw()
+            vibes = self._draw() if self._vibes else torch.zeros_like(acts)
             state, out = self.step(state, acts, vibes, None, out.observations)
             self.last_actions = acts
         return state, out

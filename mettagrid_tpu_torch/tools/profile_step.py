@@ -1,16 +1,18 @@
 """Where a bench variant's step time goes on the card.
 
-    python -m mettagrid_tpu_torch.tools.profile_step [--variant flagship|combat|general] [--out PATH]
+    python -m mettagrid_tpu_torch.tools.profile_step [--variant V] [--out PATH]
 
-Steps the variant (4096 envs x 24 agents, a pool of 64 maps, auto-reset,
-observations carried; tools/bench_run.py) on the CUDA device. After the
-warm-up it times 32 steps by the host clock without the profiler, then
-traces 32 more with torch.profiler and reports, per step: the host time of
-each step phase (the ``step.*`` spans of engine/step.py) and the device
-time of the kernels that start inside it, the device's busy time and idle
-share (one minus kernel time over the untraced step time), the kernel
-launches, and the kernels that take the most device time. Prints one JSON
-object and writes it to --out.
+V is one of tools/bench_run.py's variants: flagship (the default), combat,
+general, arena_lp, general_lp, arena_128. Steps the variant (4096 envs x 24
+agents, a pool of 64 maps, auto-reset, observations carried) on the CUDA
+device. After the warm-up it times 32 steps by the host clock without the
+profiler, then traces 32 more with torch.profiler and reports, per step:
+the host time of each step phase (the ``step.*`` spans of engine/step.py)
+and the device time of the kernels that start inside it, the device's busy
+time and idle share (one minus kernel time over the untraced step time),
+the kernel launches, the kernels that take the most device time, the
+observation route (obs_fn.route) and the peak device memory from the
+start of the run. Prints one JSON object and writes it to --out.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ def main(argv=None) -> dict:
         raise SystemExit("profile_step needs a CUDA device")
 
     n = STEPS
+    torch.cuda.reset_peak_memory_stats()
     bench = BenchRun(args.variant, seed=7)
     state, out = bench.warmed_up()
     state, out, secs = bench.timed(state, out, n)
@@ -83,6 +86,8 @@ def main(argv=None) -> dict:
         "envs": ENVS,
         "agents": AGENTS,
         "pool": POOL,
+        "obs_route": bench.step.obs_fn.route,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "steps": n,
         "step_ms_host_clock": plain_ms,
         "env_steps_per_s": ENVS / (plain_ms / 1e3),

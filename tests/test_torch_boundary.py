@@ -55,6 +55,18 @@ def test_no_jax_import_in_source(target):
             assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} imports {bad}"
 
 
+def test_no_reference_knobs_read():
+    """The port reads no METTAGRID_TPU_* switch (the reference's route and
+    probe knobs: obs tail generations, dynobj, static tail, v3, ablations);
+    the only environment variable it reads is CUDA_HOME, to find nvcc."""
+    for path in sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        text = path.read_text()
+        assert "METTAGRID_TPU_" not in text, f"{path.relative_to(ROOT)} names a reference knob"
+        reads = text.count("os.environ") + text.count("os.getenv")
+        allowed = 1 if path.name == "build.py" else 0
+        assert reads == allowed, f"{path.relative_to(ROOT)} reads the environment {reads} times"
+
+
 def _small_arena():
     from mettagrid_tpu_torch.builder import make_arena
     from mettagrid_tpu_torch.engine import build_env_init, compile_program
