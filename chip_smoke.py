@@ -50,6 +50,21 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
 13. GPU against CPU for the three new routes: 48 steps of arena_lp and
     general_lp (64 envs, max_steps 24, pool 3) and 40 steps of arena_128
     (8 envs, max_steps 16, pool 2), every output and every state field but
+    rng byte-equal;
+14. territory (the flagship with junctions of two teams that control
+    territory and emit AOEs, and the AOE mask in the observations: the
+    non-fused observation path): kernels B7 (window slices) and B8 (row
+    compaction) against their plain versions on the live state after 12
+    steps at full width, word for word, timed by CUDA events;
+15. the territory main path (8 warm-up, 32 timed steps) from the counts at
+    0: B7 and B8 launched once per observation pass and no tail kernel
+    launched; friendly and enemy AOE mask tokens appear, the agents gained
+    hearts; prints env-steps/s and the peak device memory;
+16. GPU against CPU on the territory variant (64 envs, max_steps 24, pools
+    of one map and of three, 48 steps) and on the armed combat config with
+    a 15x15 window and token values in base 4 (9 token slots per cell, so
+    window rows of 135 lanes: the non-fused path without the mask; 64 envs,
+    max_steps 16, pool 3, 24 steps), every output and every state field but
     rng byte-equal.
 
 Every phase asserts. The line before the last is the kernels' JSON record;
@@ -79,6 +94,8 @@ _KERNELS = {
     "obs_tail_dyn_v2": ("mettagrid_tpu/engine/pallas_kernels.py:970", "B3"),
     "obs_tail_static_v1": ("mettagrid_tpu/engine/pallas_kernels.py:1374", "B4"),
     "obs_tail_v1": ("mettagrid_tpu/engine/pallas_kernels.py:211", "B5"),
+    "window_slices": ("mettagrid_tpu/engine/pallas_kernels.py:154", "B7"),
+    "compact_rows": ("mettagrid_tpu/engine/pallas_kernels.py:110", "B8"),
 }
 
 
@@ -105,7 +122,7 @@ def _time_ms(torch, fn, reps: int) -> float:
 
 
 def _wrappers():
-    """{name: (wrapper, plain version)} of every tail kernel."""
+    """{name: (wrapper, plain version)} of every kernel."""
     import importlib
 
     out = {}
@@ -168,9 +185,16 @@ def _tail_record(torch, obs_fn, state):
     if "imgp" in args:  # an image in device memory: only the window words must be read
         bytes_in += (_window_words(torch, args) - args["imgp"].numel()) * 4
     bytes_out = E * A * obs_fn.out_w * 4 + E * A * 4
-    bytes_ms = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
     # One test per candidate, and one add per object word for B2's image.
     ops = E * A * (front.shape[2] + K * S) + (args["words"].numel() if name == "obs_tail_dynobj_v2" else 0)
+    return _record(name, err, kernel_ms, plain_ms, bytes_in + bytes_out, ops)
+
+
+def _record(name: str, err: int, kernel_ms: float, plain_ms: float, bytes_moved: int, ops: int) -> dict:
+    """A kernel's entry of the kernels line; the bound is the larger of the
+    bytes over the card's memory rate and the operations over its scalar
+    rate. No single PyTorch call computes any of these functions."""
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     return {
         "name": name,
@@ -188,10 +212,24 @@ def _tail_record(torch, obs_fn, state):
     }
 
 
-def _timed_path(torch, bench, n_timed: int, kernel):
+def _kernel_record(torch, name: str, args: dict, bytes_moved: int, ops: int) -> dict:
+    """Kernel ``name`` against its plain version on ``args``, word for word,
+    with both timed by CUDA events."""
+    kernel, plain = _wrappers()[name]
+    got, ref = kernel(**args), plain(**args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref), f"{_KERNELS[name][1]} differs from its plain version"
+    err = int((got.long() - ref.long()).abs().max())
+    kernel_ms = _time_ms(torch, lambda: kernel(**args), 50)
+    plain_ms = _time_ms(torch, lambda: plain(**args), 5)
+    return _record(name, err, kernel_ms, plain_ms, bytes_moved, ops)
+
+
+def _timed_path(torch, bench, n_timed: int, *kernels):
     """A variant's main path from the counts at 0: reset, warm-up and n_timed
-    steps. Asserts that ``kernel`` launched once per observation pass and no
-    other tail kernel launched; returns (state, out, seconds, launches)."""
+    steps. Asserts that each of ``kernels`` launched once per observation
+    pass and no other kernel launched; returns (state, out, seconds,
+    launches of the first kernel)."""
     from mettagrid_tpu_torch.tools.bench_run import AGENTS, ENVS, WARMUP
 
     _zero_counts()
@@ -199,16 +237,17 @@ def _timed_path(torch, bench, n_timed: int, kernel):
     state, out, dt = bench.timed(state, out, n_timed)
     launches = {name: k.launches for name, (k, _) in _wrappers().items()}
     want = 1 + WARMUP + n_timed
-    name = kernel.__name__
-    assert launches[name] == want, f"{name} launched {launches[name]} times for {want} obs passes"
-    others = {k: v for k, v in launches.items() if k != name and v}
-    assert not others, f"the {bench.variant} path launched other tail kernels: {others}"
+    names = [k.__name__ for k in kernels]
+    for name in names:
+        assert launches[name] == want, f"{name} launched {launches[name]} times for {want} obs passes"
+    others = {k: v for k, v in launches.items() if k not in names and v}
+    assert not others, f"the {bench.variant} path launched other kernels: {others}"
     T = bench.program.num_tokens
     assert tuple(out.observations.shape) == (ENVS, AGENTS, T, 3) and out.observations.dtype == torch.uint8
     assert torch.isfinite(out.rewards).all() and torch.isfinite(state.game_stats).all()
     assert torch.isfinite(state.episode_rewards).all()
     assert int(out.tokens_attempted.min()) > 0, "an agent attempted no tokens"
-    return state, out, dt, launches[name]
+    return state, out, dt, launches[names[0]]
 
 
 def _main_path(torch, card: str):
@@ -236,11 +275,13 @@ def _main_path(torch, card: str):
     return record
 
 
-def _gpu_vs_cpu(torch, variant: str, pool: int, E: int, n_steps: int, max_steps: int, armed: bool = False):
+def _gpu_vs_cpu(torch, variant: str, pool: int, E: int, n_steps: int, max_steps: int, armed: bool = False,
+                change=None):
     """The card's path against the CPU plain path, byte for byte, with agent
     orders, reset maps and (where the config has events) event ranks drawn
-    with numpy and fed to both. Returns the card's trace of (state, outputs)
-    as numpy, one entry per step and one for the reset."""
+    with numpy and fed to both; ``change(cfg)`` edits the variant's config
+    first. Returns the card's trace of (state, outputs) as numpy, one entry
+    per step and one for the reset."""
     from mettagrid_tpu_torch.engine import make_reset, make_step
     from mettagrid_tpu_torch.engine.interop import state_to_numpy
     from mettagrid_tpu_torch.tools.bench_run import AGENTS, build_pool, make_cfg
@@ -248,6 +289,8 @@ def _gpu_vs_cpu(torch, variant: str, pool: int, E: int, n_steps: int, max_steps:
     cfg = make_cfg(variant)
     if armed:
         cfg.game.agent.inventory.initial = {"laser": 5, "armor": 1, "heart": 9}
+    if change is not None:
+        change(cfg)
     program, init = build_pool(cfg, pool, max_steps=max_steps)
     n_actions = len(program.action_names)
     names = program.action_names
@@ -379,6 +422,70 @@ def _new_route(torch, card: str, phase: int, variant: str, kernel):
     return record
 
 
+def _territory_paths(torch, card: str):
+    """Phases 14 and 15: B7 and B8 against their plain versions on the live
+    territory state after 12 steps, then the territory main path from the
+    counts at 0."""
+    from mettagrid_tpu_torch.engine.kernels.compact_rows import compact_rows
+    from mettagrid_tpu_torch.engine.kernels.window_slices import window_slices
+    from mettagrid_tpu_torch.tools.bench_run import AGENTS, ENVS, POOL, BenchRun
+
+    torch.cuda.empty_cache()
+    bench = BenchRun("territory", seed=114)
+    fn = bench.step.obs_fn
+    assert fn.route == "nonfused", f"territory routes to {fn.route}"
+    heart = list(bench.program.resource_names).index("heart")
+    state, out = bench.reset(0)
+    hearts0 = int(state.obj_inv[:, :AGENTS, heart].sum())
+
+    # --- phase 14: B7 and B8 vs plain after 12 steps ---
+    state, out = bench.run(state, out, 12)
+    wargs = fn.window_inputs(state)
+    E, A = wargs["row0"].shape
+    K, Ch = wargs["geom"].shape[0], wargs["Ch"]
+    # The image words inside some window are read once, the windows written once.
+    window = dict(imgp=wargs["img"], row0=wargs["row0"], lane0=wargs["lane0"], geom=wargs["geom"], S=Ch)
+    read = (_window_words(torch, window) + 2 * E * A + 3 * K) * 4
+    b7 = _kernel_record(torch, "window_slices", wargs, read + E * A * K * Ch * 4, E * A * K * Ch)
+    cargs = fn.compact_inputs(state)
+    R, C = cargs["words"].shape
+    T = cargs["T"]
+    valid = float((cargs["words"] >= 0).float().mean())
+    b8 = _kernel_record(torch, "compact_rows", cargs, (R * C + R * T) * 4, R * C)
+    del state, out, wargs, window, cargs
+    print(f"[14] B7 equal to its plain version on the territory state after 12 steps ({E} x {A} windows of "
+          f"{K} cells x {Ch} channels): kernel {b7['ms']:.4f} ms, plain {b7['plain_ms']:.4f} ms, bound "
+          f"{b7['bound_ms']:.4f} ms ({b7['bound_by']}); B8 equal ({R} rows of {C} words, {valid:.3f} valid, "
+          f"budget {T}): kernel {b8['ms']:.4f} ms, plain {b8['plain_ms']:.4f} ms, bound {b8['bound_ms']:.4f} ms "
+          f"({b8['bound_by']})", flush=True)
+
+    # --- phase 15: the territory main path, counts from 0 ---
+    n_timed = 32
+    torch.cuda.reset_peak_memory_stats()
+    state, out, dt, launches = _timed_path(torch, bench, n_timed, window_slices, compact_rows)
+    peak = torch.cuda.max_memory_allocated()
+    obs = out.observations
+    mask = obs[..., 2][obs[..., 1] == bench.program.feature_ids.aoe_mask]
+    friendly, enemy = int((mask == 1).sum()), int((mask == 2).sum())
+    assert friendly > 0 and enemy > 0, "no friendly or no enemy AOE mask token"
+    hearts = int(state.obj_inv[:, :AGENTS, heart].sum())
+    assert hearts > hearts0, "the agents gained no hearts"
+    b7["launches"] = b8["launches"] = launches
+    print(f"[15] territory main path ({fn.route}), {ENVS} envs x {AGENTS} agents, pool {POOL}, auto-reset, obs "
+          f"carried: {ENVS * n_timed / dt:.0f} env-steps/s, {dt / n_timed * 1e3:.3f} ms/step (host clock over "
+          f"{n_timed} steps) on {card}; B7 and B8 launches {launches} each; AOE mask tokens friendly {friendly}, "
+          f"enemy {enemy}; agents hold {hearts} hearts ({hearts0} at reset); peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    return b7, b8
+
+
+def _wide_window(cfg):
+    """A 15x15 window with token values in base 4: window rows of more than
+    128 lanes, so the non-fused path without the AOE mask."""
+    cfg.game.obs.width = cfg.game.obs.height = 15
+    cfg.game.obs.token_value_base = 4
+
+
 def _general_gpu_vs_cpu(torch, armed: bool):
     """Phase 9: the general config, as built or armed; checks that the
     compared window holds an event and, armed, a damaging attack."""
@@ -444,9 +551,23 @@ def main() -> int:
         print(f"[13] GPU path equals the CPU path on {variant} over {n_steps} steps of {E} envs, pool of {pool} "
               "maps, with auto-resets (every output, every state field but rng)", flush=True)
 
-    print(f"[13] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    b7, b8 = _territory_paths(torch, card)
+    torch.cuda.empty_cache()
+    for pool in (1, 3):
+        _gpu_vs_cpu(torch, "territory", pool, 64, 48, 24)
+        print(f"[16] GPU path equals the CPU path on territory over 48 steps of 64 envs, pool of {pool} map(s), "
+              "with auto-resets (every output, every state field but rng)", flush=True)
+    from mettagrid_tpu_torch.engine.obs import make_stage1
+
+    program, _ = _gpu_vs_cpu(torch, "combat", 3, 64, 24, 16, change=_wide_window)
+    S = make_stage1(program).num_slots
+    assert program.obs_width * S > 128
+    print(f"[16] GPU path equals the CPU path on combat with a 15x15 window (S = {S}, rows of "
+          f"{program.obs_width * S} lanes) over 24 steps of 64 envs, pool of 3 maps, with auto-resets", flush=True)
+
+    print(f"[16] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
-    print(json.dumps({"kernels": [b1, b2, b3, b4, b5]}))
+    print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b7, b8]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

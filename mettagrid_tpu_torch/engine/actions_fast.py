@@ -297,6 +297,7 @@ def gridless_batch_ok(program: EngineProgram) -> bool:
         list(program.on_tick_handlers or ())
         + list(getattr(program, "on_after_use_handlers", ()) or ())
         + [getattr(program, "game_on_tick", None)]
+        + [h for spec in program.territories or () for h in (spec.on_enter, spec.on_exit, spec.presence)]
     ):
         if not _h_gridsafe(h, False):
             return False

@@ -1,0 +1,145 @@
+"""Per-tick area effects (reference: core/aoe_tracker.{hpp,cpp}).
+
+Counterpart of the reference's engine/aoe.py. Fixed and mobile sources
+collapse into one [E, N, A] distance mask per AOE spec. Presence deltas are
+edge-triggered on the ``aoe_inside`` mask carried in EnvState; per-tick
+resource deltas on the target net across sources before clamping (the
+reference's deferred-delta batching, aoe_tracker.cpp:282-361). Every other
+mutation kind runs per (source, agent) pair (_apply_general_mutations).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mettagrid_tpu_torch.engine.exec import Ctx, eval_filters, inv_update
+from mettagrid_tpu_torch.engine.handlers import apply_mutation, emit_inv_stats
+from mettagrid_tpu_torch.engine.program import EngineProgram
+from mettagrid_tpu_torch.engine.state import EnvState
+
+# Mutation kinds with exact vectorized paths in aoe_phase (resource_delta
+# only on the target); the rest run _apply_general_mutations.
+FAST_KINDS = frozenset({"change_vibe", "add_tag", "remove_tag"})
+
+
+def general_mutations(spec):
+    """The mutations of an AOE spec that run per (source, agent) pair."""
+    return [
+        m for m in spec.mutations
+        if m.kind not in FAST_KINDS and not (m.kind == "resource_delta" and not m.target_is_actor)
+    ]
+
+
+def _agent_inv_deltas(program, state, deltas, scale, mask):
+    """Adds scale * delta of each (rid, delta) to the agents' inventories
+    under mask (int32[E, A]), with the inventory stats it emits."""
+    A = program.num_agents
+    tid = state.obj_type[:, :A]
+    before = state.obj_inv[:, :A]
+    inv = before
+    for rid, delta in deltas:
+        inv, _ = inv_update(program, tid, inv, rid, delta * scale, mask)
+    obj_inv = state.obj_inv.clone()
+    obj_inv[:, :A] = inv
+    state = state._replace(obj_inv=obj_inv)
+    return emit_inv_stats(program, state, None, inv - before, inv, mask, actor_prefix=True)
+
+
+def make_aoe_phase(program: EngineProgram):
+    """Returns aoe_phase(state) -> state, or None when there are no AOE specs."""
+    specs = program.aoe_specs
+    if not specs:
+        return None
+    A = program.num_agents
+
+    def aoe_phase(state: EnvState) -> EnvState:
+        E, N = state.obj_type.shape
+        dev = state.obj_type.device
+        src_slots = torch.arange(N, dtype=torch.int32, device=dev)[None, :, None].expand(E, N, A)
+        agt_slots = torch.arange(A, dtype=torch.int32, device=dev)[None, None, :].expand(E, N, A)
+        # Source -> agent squared distances [E, N, A].
+        dr = state.obj_r[:, :, None] - state.obj_r[:, None, :A]
+        dc = state.obj_c[:, :, None] - state.obj_c[:, None, :A]
+        d2 = dr * dr + dc * dc
+        inside = []
+        for k, spec in enumerate(specs):
+            source = state.obj_alive & (state.obj_type == spec.type_id)  # [E, N]
+            cand = source[:, :, None] & (d2 <= spec.radius * spec.radius)
+            if not spec.effect_self:
+                cand = cand & (src_slots != agt_slots)
+            ctx = Ctx(
+                actor=src_slots,
+                target=agt_slots,
+                target_r=state.obj_r[:, None, :A].expand(E, N, A),
+                target_c=state.obj_c[:, None, :A].expand(E, N, A),
+                distance=torch.zeros((E, N, A), dtype=torch.int32, device=dev),
+                timestep=state.step_count,
+            )
+            passes = cand & eval_filters(program, state, ctx, spec.filters)
+            was_inside = state.aoe_inside[:, k]  # [E, N, A]
+            inside.append(passes)
+
+            # Presence deltas on the net (enter - exit) count per agent (the
+            # reference applies them per source; the two differ only at clamp
+            # boundaries when an agent enters one source and exits another in
+            # the same tick).
+            if spec.presence:
+                edge = (passes & ~was_inside).sum(dim=1, dtype=torch.int32) - (was_inside & ~passes).sum(
+                    dim=1, dtype=torch.int32
+                )  # [E, A]
+                state = _agent_inv_deltas(program, state, spec.presence, edge, edge != 0)
+
+            # Per-tick mutations: target resource deltas scale with the number
+            # of passing sources, idempotent kinds apply once when any passes.
+            n_pass = passes.sum(dim=1, dtype=torch.int32)  # [E, A]
+            any_pass = n_pass > 0
+            for m in spec.mutations:
+                if m.kind == "resource_delta" and not m.target_is_actor:
+                    state = _agent_inv_deltas(program, state, m.deltas, n_pass, any_pass)
+                elif m.kind == "change_vibe":
+                    vibe = state.obj_vibe.clone()
+                    vibe[:, :A] = torch.where(any_pass, m.vibe_id, vibe[:, :A])
+                    state = state._replace(obj_vibe=vibe)
+                elif m.kind in ("add_tag", "remove_tag"):
+                    tags = state.obj_tags.clone()
+                    tags[:, :A, m.tag_id] = torch.where(any_pass, m.kind == "add_tag", tags[:, :A, m.tag_id])
+                    state = state._replace(obj_tags=tags)
+            general = general_mutations(spec)
+            if general:
+                state = _apply_general_mutations(program, state, general, passes, n_pass, A)
+        return state._replace(aoe_inside=torch.stack(inside, dim=1))
+
+    return aoe_phase
+
+
+def _apply_general_mutations(program, state, mutations, passes, n_pass, A):
+    """Run the mutation chain per (source, agent) passing pair.
+
+    The reference applies each AOE source's mutations per target with actor
+    = source and target = agent (aoe_tracker.cpp:99-115), per target in
+    agent order, sources in registration order. Here wave w binds each
+    agent's (w+1)-th passing source (ascending slot) as its actor, and the
+    agents apply in order inside each wave. The number of waves, the largest
+    number of sources passing one agent, is read back to the host once per
+    call: this phase's one host read, made only for specs with such
+    mutations. Filters were evaluated at phase start (batch semantics; the
+    reference re-checks per pair mid-traversal)."""
+    E = passes.shape[0]
+    dev = passes.device
+    csum = passes.to(torch.int32).cumsum(dim=1)  # [E, N, A]
+    for w in range(int(n_pass.max())):
+        sel = passes & (csum == w + 1)  # [E, N, A]: one source per agent at most
+        actor_slot = sel.to(torch.int8).argmax(dim=1).to(torch.int32)  # [E, A]
+        has = sel.any(dim=1)  # [E, A]
+        for a in range(A):
+            ctx = Ctx(
+                actor=actor_slot[:, a],
+                target=torch.full((E,), a, dtype=torch.int32, device=dev),
+                target_r=state.obj_r[:, a],
+                target_c=state.obj_c[:, a],
+                distance=torch.zeros((E,), dtype=torch.int32, device=dev),
+                timestep=state.step_count,
+            )
+            for m in mutations:
+                state, _ = apply_mutation(program, state, ctx, m, has[:, a])
+    return state

@@ -21,9 +21,10 @@
 // (feat << 8 | val) | loc << 16 with -1 for empty slots.
 //
 // One warp per agent walks the candidates 32 at a time; __ballot_sync and
-// __popc give each valid lane its output rank, so the compaction costs no
-// extra pass and every output word is written exactly once, neighbouring
-// lanes on neighbouring addresses.
+// __popc give each valid lane its output rank (warp_rank, which kernel B8,
+// compact_rows.cu, also runs), so the compaction costs no extra pass and
+// every output word is written exactly once, neighbouring lanes on
+// neighbouring addresses.
 
 #pragma once
 
@@ -72,6 +73,16 @@ struct V1Words {
   __device__ int operator()(int cell, unsigned loc) const { return (cell - 1) | (int)(loc << 16); }
 };
 
+// The output rank of the calling lane's item among the valid items of its
+// warp, after `count` valid items of earlier rounds; adds this round's valid
+// items to `count`. Every lane of the warp must call it.
+__device__ inline int warp_rank(bool ok, int& count) {
+  const unsigned vote = __ballot_sync(0xFFFFFFFFu, ok);
+  const int rank = count + __popc(vote & ((1u << (threadIdx.x & 31)) - 1u));
+  count += __popc(vote);
+  return rank;
+}
+
 // The tail for every agent of env e over the image `img` and the tables
 // `tab` (load_tables), in the word format `fmt` (V2Words or V1Words). Call
 // after a __syncthreads that follows the last write to either.
@@ -86,7 +97,6 @@ __device__ inline void agents(const Words fmt, const int* img, const int* tab, i
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  const unsigned lanes_below = (1u << lane) - 1u;
   const int C = G + KS;
   for (int a = warp; a < A; a += nwarps) {
     const size_t ea = (size_t)e * A + a;
@@ -109,10 +119,8 @@ __device__ inline void agents(const Words fmt, const int* img, const int* tab, i
         loc = (unsigned)tab_loc[jj];
       }
       const bool ok = cell > 0;
-      const unsigned vote = __ballot_sync(0xFFFFFFFFu, ok);
-      const int rank = count + __popc(vote & lanes_below);
+      const int rank = warp_rank(ok, count);
       if (ok && rank < out_w) o[rank] = fmt(cell, loc);
-      count += __popc(vote);
     }
     for (int i = (count < out_w ? count : out_w) + lane; i < out_w; i += 32) o[i] = Words::kEmpty;
     if (lane == 0) attempted[ea] = count;

@@ -1,15 +1,16 @@
 """Engine primitives: entity gathers and scatters, grid reads and writes,
 inventory math, game values, filters and tag queries.
 
-Counterpart of the reference's engine/exec.py, reduced to what the flagship,
-combat and general steps reach. The reference formulates gathers as one-hot
-matmuls, a workaround for XLA on the TPU (its ``_use_onehot``); here they are
-direct gathers and ``scatter_`` calls. Every function works out of place.
-Constructs the port does not run yet raise NotImplementedError naming the
-ROADMAP item that ports them.
+Counterpart of the reference's engine/exec.py, reduced to what the
+flagship, combat, general and territory steps reach. The reference
+formulates gathers as one-hot matmuls, a workaround for XLA on the TPU (its
+``_use_onehot``); here they are direct gathers and ``scatter_`` calls. Every
+function works out of place. Constructs the port does not run yet raise
+NotImplementedError naming the ROADMAP item that ports them.
 
 Batch convention: context fields have shape B = (E, ...): (E, A) in move
-waves, (E, N) in event and query contexts. State arrays are [E, N, ...];
+waves and territory contexts, (E, N) in event and query contexts, (E, N, A)
+in AOE contexts. State arrays are [E, N, ...];
 slot -1 means "no entity" (gathers clip it to slot 0; callers mask).
 """
 
@@ -349,7 +350,9 @@ def eval_value_agents(program, state, cv: CompiledValue) -> torch.Tensor:
 # =====================================================================
 
 # Filter kinds this module evaluates; fast_mode_ok admits more, which raise.
-PORTED_FILTERS = frozenset({"target_loc_empty", "target_is_usable", "vibe"})
+PORTED_FILTERS = frozenset(
+    {"target_loc_empty", "target_is_usable", "vibe", "resource", "tag", "tag_prefix", "shared_tag_prefix"}
+)
 
 
 def eval_filter(program, state, ctx: Ctx, f: CompiledFilter) -> torch.Tensor:
@@ -360,6 +363,9 @@ def eval_filter(program, state, ctx: Ctx, f: CompiledFilter) -> torch.Tensor:
             return arr[:, : slot.shape[1]]
         return gather(arr, slot)
 
+    slot = ctx.actor if f.target_is_actor else ctx.target
+    # A territory's proxy actor has no slot, only the winning tag.
+    proxy_tags = ctx.actor_tags if f.target_is_actor else None
     if f.kind == "target_loc_empty":
         return ctx.target < 0
     if f.kind == "target_is_usable":
@@ -367,9 +373,33 @@ def eval_filter(program, state, ctx: Ctx, f: CompiledFilter) -> torch.Tensor:
         usable = type_select(program, ttype, np.asarray(program.type_usable, dtype=np.int32)) > 0
         return (ctx.target >= 0) & usable
     if f.kind == "vibe":
-        slot = ctx.actor if f.target_is_actor else ctx.target
         vibe = eread(state.obj_vibe, slot, f.target_is_actor)
         return (slot >= 0) & (vibe == f.vibe_id)
+    if f.kind == "resource":
+        inv = eread(state.obj_inv, slot, f.target_is_actor)  # [B, R]
+        ok = slot >= 0
+        for rid, amount in f.resource_mins:
+            ok = ok & (inv[..., rid] >= amount)
+        return ok
+    if f.kind == "tag":
+        if proxy_tags is not None:
+            return proxy_tags[..., f.tag_id]
+        return (slot >= 0) & eread(state.obj_tags, slot, f.target_is_actor)[..., f.tag_id]
+    if f.kind == "tag_prefix":
+        pm = device_table(program, f.tag_mask, slot.device)
+        if proxy_tags is not None:
+            return (proxy_tags & pm).any(dim=-1)
+        return (slot >= 0) & (eread(state.obj_tags, slot, f.target_is_actor) & pm).any(dim=-1)
+    if f.kind == "shared_tag_prefix":
+        if ctx.actor_tags is not None:
+            at = ctx.actor_tags
+            actor_ok = at.any(dim=-1)
+        else:
+            at = eread(state.obj_tags, ctx.actor, True)
+            actor_ok = ctx.actor >= 0
+        tt = eread(state.obj_tags, ctx.target)
+        pm = device_table(program, f.tag_mask, ctx.target.device)
+        return actor_ok & (ctx.target >= 0) & (at & tt & pm).any(dim=-1)
     raise NotImplementedError(f"filter kind {f.kind!r} is not ported yet (ROADMAP Queue 1 item 7)")
 
 

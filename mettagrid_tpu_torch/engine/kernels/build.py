@@ -23,7 +23,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("obs_tail_static_v2", "obs_tail_dynobj_v2", "obs_tail_dyn_v2", "obs_tail_static_v1", "obs_tail_v1")
+KERNELS = (
+    "obs_tail_static_v2", "obs_tail_dynobj_v2", "obs_tail_dyn_v2", "obs_tail_static_v1", "obs_tail_v1",
+    "window_slices", "compact_rows",
+)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -148,13 +148,17 @@ def maybe_written_pool_fields(program: EngineProgram, lazy_grid: bool = False) -
     sites += list(getattr(program, "on_after_use_handlers", ()) or ())
     sites += [getattr(program, "game_on_tick", None)]
     sites += [ev.handler for ev in (program.events or ())]
+    # Territory enter / exit / presence handlers run mutations too (an
+    # inventory income, an armor change on entry).
+    for spec in program.territories or ():
+        sites += [spec.on_enter, spec.on_exit, spec.presence]
     for h in sites:
         out |= _handler_fields(h, any_usable)
     for spec in program.aoe_specs or ():
         for m in spec.mutations:
             out |= _mutation_fields(m, any_usable)
-    # Territory effects write territory_inside (const-reset, not a pool
-    # field) and rewards via GameValues; nothing in the pool set.
+        if spec.presence:  # presence deltas change the agents' inventories
+            out |= _INV_FIELDS
     # change_vibe ACTION streams write agent vibes outside any handler.
     if any(n.startswith("change_vibe") for n in program.action_names):
         out.add("obj_vibe")

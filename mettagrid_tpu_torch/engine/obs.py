@@ -1,7 +1,7 @@
-"""Token observations through the fused tails.
+"""Token observations: the fused tails and the non-fused path.
 
-Counterpart of the reference's engine/obs.py, reduced to its fused routes
-(make_obs_fn picks one from the program's static shapes):
+Counterpart of the reference's engine/obs.py without its opt-in v3 tails
+(make_obs_fn picks a route from the program's static shapes):
 
 * static background (the arena and combat presets): every non-agent object is
   provably inert (static_background_ok), so its token image is built once per
@@ -14,18 +14,24 @@ Counterpart of the reference's engine/obs.py, reduced to its fused routes
 * an env image built here, in device memory: for maps whose image is too
   large for one block's shared memory (kernel B3, obs_tail_dyn_v2.py, v2
   tail) and for mutable backgrounds off the v2 gate (kernel B5,
-  obs_tail_v1.py, v1 tail).
+  obs_tail_v1.py, v1 tail);
+* the non-fused path, for configs no fused tail takes (the AOE mask, or
+  window rows wider than 128 lanes): each env's cell image (the pooled map
+  plus the agents, or every object) and, with the mask, each cell's winning
+  territory tag, interleaved into one padded image; kernel B7
+  (window_slices.py) cuts every agent's window out of it in Manhattan order,
+  stage 4 builds the candidate words here, and kernel B8 (compact_rows.py)
+  compacts them to the token budget.
 
 The v2 tail serves configs whose globals are always present; the v1 tail
-also takes globals that can be absent (local position, value observations).
+and the non-fused path also take globals that can be absent (local
+position, value observations).
 
 Token format (reference: core/grid_object.hpp:36-47): [packed_location,
 feature_id, value] uint8; empty = 0xFF, global = 0xFE. Candidate order
-within a cell: tags ascending, vibe, inventory digits, protocol recipe
-quantities, group, agent id; cells in Manhattan order; globals first.
-
-Configs off these routes (an AOE mask, or window rows wider than 128 lanes)
-raise NotImplementedError: ROADMAP Queue 1 item 10.
+within a cell: the AOE mask (mettagrid_c.cpp:337-362), tags ascending,
+vibe, inventory digits, protocol recipe quantities, group, agent id; cells
+in Manhattan order; globals first.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mettagrid_tpu_torch.engine.kernels.compact_rows import compact_rows
 from mettagrid_tpu_torch.engine.kernels.obs_tail_dyn_v2 import obs_tail_dyn_v2
 from mettagrid_tpu_torch.engine.kernels.obs_tail_dynobj_v2 import obs_tail_dynobj_v2
 from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v1 import obs_tail_static_v1
@@ -43,9 +50,11 @@ from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import (
     staged_smem_bytes,
 )
 from mettagrid_tpu_torch.engine.kernels.obs_tail_v1 import obs_tail_v1
+from mettagrid_tpu_torch.engine.kernels.window_slices import window_slices
 from mettagrid_tpu_torch.engine.obs_caps import compute_obs_caps, max_tokens_per_object, max_window_tokens
-from mettagrid_tpu_torch.engine.program import EMPTY_TOKEN_BYTE, EngineProgram, pack_coordinate
+from mettagrid_tpu_torch.engine.program import EMPTY_TOKEN_BYTE, GLOBAL_LOCATION, EngineProgram, pack_coordinate
 from mettagrid_tpu_torch.engine.state import EnvState, resolve_device
+from mettagrid_tpu_torch.engine.territory import check_territories, winning_tags
 
 # Rows of the window the reference's fused tail stages; its padded image
 # height is sized from it, and the port keeps that geometry (window OH <= 16).
@@ -226,16 +235,17 @@ def make_stage1(program: EngineProgram):
     return stage1
 
 
-def _scatter_cells(tok, cnt, alive, obj_r, obj_c, H: int, W: int) -> torch.Tensor:
+def _scatter_cells(tok, cnt, alive, obj_r, obj_c, H: int, W: int, base=None) -> torch.Tensor:
     """Stage 2 (the reference's make_cell_image_fn._cell_image, in integer
     ops): every object's S words and its token count summed into its cell of
-    int32[B, H+1, W, S+1]; dead objects land on the padding row H."""
+    int32[B, H+1, W, S+1]; dead objects land on the padding row H. With
+    ``base`` (an image of that shape), the sums are added to it in place."""
     B, M, S = tok.shape
     dev = tok.device
     rr = torch.where(alive, obj_r, H).long()
     cc = torch.where(alive, obj_c, 0).long()
     bb = torch.arange(B, device=dev)[:, None].expand(B, M)
-    img = torch.zeros((B, H + 1, W, S + 1), dtype=torch.int32, device=dev)
+    img = torch.zeros((B, H + 1, W, S + 1), dtype=torch.int32, device=dev) if base is None else base
     img.index_put_((bb, rr, cc), torch.cat([tok, cnt[..., None]], dim=-1), accumulate=True)
     return img
 
@@ -265,10 +275,14 @@ def build_static_bg(program: EngineProgram, init, device=None) -> torch.Tensor:
     return _scatter_cells(tok, cnt, alive, t(init.obj_r), t(init.obj_c), program.height, program.width)
 
 
-def tail_route(v2_ok: bool, static: bool, fits: bool) -> str:
-    """The tail kernel of make_obs_fn's table: "B1" to "B5", from the v2
-    gate, the background kind and whether one env's image and the candidate
+def tail_route(v2_ok: bool, static: bool, fits: bool, fused: bool = True) -> str:
+    """The route of make_obs_fn's table: "nonfused" where no fused tail
+    takes the config (``fused`` False: an AOE mask, or window rows wider
+    than 128 lanes), else the tail kernel "B1" to "B5", from the v2 gate,
+    the background kind and whether one env's image and the candidate
     tables fit one block's shared memory."""
+    if not fused:
+        return "nonfused"
     if v2_ok:
         return ("B1" if static else "B2") if fits else "B3"
     return "B4" if static and fits else "B5"
@@ -377,15 +391,9 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
         and OWS <= 128
     )
     v2_ok = v2_common and ((not wide and feat_max < 128) or (wide and feat_max < 64 and KS_pad2 <= 1024))
-    if has_aoe_mask:
-        raise NotImplementedError(
-            "AOE mask tokens take the non-fused observation path, which is not ported yet (ROADMAP Queue 1 item 10)"
-        )
-    if not v2_ok and OWS > 128:
-        raise NotImplementedError(
-            f"window rows of {OWS} lanes (OW * S > 128) are outside both fused tails' gates; the non-fused "
-            "observation path is not ported yet (ROADMAP Queue 1 item 10)"
-        )
+    # Both fused tails read window rows of at most 128 lanes, and neither
+    # emits the AOE mask (reference obs.py:857-866).
+    fused = not has_aoe_mask and OWS <= 128
     # v2: provable output-prefix width, ranks >= G + max_window_tokens never occur.
     OUT_W = min(KS_pad2, max(((min(G + max_window_tokens(program, caps, K), T) + 127) // 128) * 128, 128))
     # v1: the budget, clamped at the candidate lanes (pallas_kernels.py:252).
@@ -394,7 +402,7 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
     HP_f = ((max(H + OH, H + RP_f, H - 1 + _V2_RPE) + 7) // 8) * 8
     WPC_f = (((W + OW) * S + 127) // 128) * 128
     static = static_bg is not None
-    route = tail_route(v2_ok, static, staged_smem_bytes(HP_f, WPC_f, K, S) <= MAX_SMEM)
+    route = tail_route(v2_ok, static, staged_smem_bytes(HP_f, WPC_f, K, S) <= MAX_SMEM, fused)
 
     dev = static_bg.device if static else resolve_device(device)
     geom = torch.from_numpy(
@@ -468,18 +476,22 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
         out[:, hr : hr + H, wr * S : (wr + W) * S] = body
         return out
 
-    def agent_inputs(state: EnvState) -> dict:
-        """Window starts and the agents' image positions and +1-encoded words."""
+    def agent_tokens(state: EnvState):
+        """Stage 1 over the agents' slots."""
         E = state.obj_type.shape[0]
-        agent_r = state.obj_r[:, :A]
-        agent_c = state.obj_c[:, :A]
         slots_a = torch.arange(A, dtype=torch.int32, device=dev)[None, :].expand(E, A)
-        tok_a, cnt_a = stage1(
+        return stage1(
             state.obj_type[:, :A], state.obj_vibe[:, :A], state.obj_tags[:, :A],
             state.obj_inv[:, :A], state.obj_alive[:, :A],
             torch.ones((E, A), dtype=torch.bool, device=dev),  # slots < A are agents
             state.agent_group, slots_a,
         )
+
+    def agent_inputs(state: EnvState) -> dict:
+        """Window starts and the agents' image positions and +1-encoded words."""
+        agent_r = state.obj_r[:, :A]
+        agent_c = state.obj_c[:, :A]
+        tok_a, cnt_a = agent_tokens(state)
         return dict(
             row0=agent_r.contiguous(),
             lane0=(agent_c * S).contiguous(),
@@ -499,6 +511,18 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
             torch.nn.functional.pad(state.agent_group, (0, N - A)), slots_n,
         )
 
+    def cell_image(state: EnvState):
+        """Raw token words and counts per cell, int32[E, H+1, W, S+1]: the
+        pooled static map plus the agents, or every object."""
+        if static:
+            tok_a, cnt_a = agent_tokens(state)
+            return _scatter_cells(
+                tok_a, cnt_a, state.obj_alive[:, :A], state.obj_r[:, :A], state.obj_c[:, :A], H, W,
+                base=static_bg[state.map_idx.long()],
+            )
+        tok_n, cnt_n = object_tokens(state)
+        return _scatter_cells(tok_n, cnt_n, state.obj_alive, state.obj_r, state.obj_c, H, W)
+
     if static:
         # ---- prepadded +1-encoded static pool, int32[P, HP_f, WPC_f] ----
         static_imgp = padded(static_bg)
@@ -516,10 +540,59 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
         def image(state: EnvState):
             """Each env's padded image, int32[E, HP_f, WPC_f], from the cell
             image of every object (reference obs.py:1102-1120, 1159-1170)."""
-            tok_n, cnt_n = object_tokens(state)
-            cells = _scatter_cells(tok_n, cnt_n, state.obj_alive, state.obj_r, state.obj_c, H, W)
             a = dict(row0=state.obj_r[:, :A].contiguous(), lane0=(state.obj_c[:, :A] * S).contiguous())
-            return padded(cells), a
+            return padded(cell_image(state)), a
+
+    # ---- the non-fused path (reference obs.py:1073-1271) ----
+    M = 1 if has_aoe_mask else 0  # the AOE mask word leads each cell's candidates
+    Ch = S + 1 + M  # image channels: S token words, the count, the winning tag + 1
+    HP_n = ((H + OH + 7) // 8) * 8
+    WPC_n = (((W + OW) * Ch + 127) // 128) * 128
+    loc_t = torch.from_numpy(loc_k).to(dev)
+    if has_aoe_mask:
+        check_territories(program)
+        cell_r = torch.arange(H, dtype=torch.int32, device=dev).repeat_interleave(W)  # [H*W]
+        cell_c = torch.arange(W, dtype=torch.int32, device=dev).repeat(H)
+
+    def window_inputs(state: EnvState) -> dict:
+        """B7's arguments: the padded interleaved image int32[E, HP_n, WPC_n]
+        of Ch channels per cell (reference obs.py:1126-1145, 1174-1181) and
+        the agents' window starts."""
+        E = state.obj_type.shape[0]
+        img = torch.zeros((E, HP_n, WPC_n), dtype=torch.int32, device=dev)
+        body = img[:, hr : hr + H, wr * Ch : (wr + W) * Ch].unflatten(-1, (W, Ch))  # a view into img
+        body[..., : S + 1] = cell_image(state)[:, :H]
+        if has_aoe_mask:
+            pts = (cell_r.expand(E, H * W), cell_c.expand(E, H * W))
+            body[..., S + 1] = (winning_tags(program, state, *pts) + 1).view(E, H, W)
+        return dict(img=img, row0=state.obj_r[:, :A].contiguous(), lane0=(state.obj_c[:, :A] * Ch).contiguous(),
+                    geom=geom, Ch=Ch)
+
+    def candidate_words(state: EnvState, win) -> torch.Tensor:
+        """Each agent's candidate words int32[E, A, G + K*(M+S)], -1 where
+        invalid (stage 4, reference obs.py:1213-1245): the globals, then per
+        window cell the AOE mask word and the token words, each with its
+        location byte at bit 16."""
+        E = win.shape[0]
+        words = win[..., :S]
+        ok = slot_range < win[..., S, None]  # [E, A, K, S]
+        if has_aoe_mask:
+            wt = win[..., S + 1] - 1  # the winning tag, -1 for none
+            friendly = torch.gather(state.obj_tags[:, :A], 2, wt.clamp(0, program.num_tags - 1).long())
+            # neutral 0, friendly 1 (the observer has the winning tag), enemy 2
+            mask_val = torch.where(wt >= 0, torch.where(friendly, 1, 2), 0).to(torch.int32)
+            words = torch.cat([((feat.aoe_mask << 8) | mask_val)[..., None], words], dim=-1)
+            ok = torch.cat([(mask_val != 0)[..., None], ok], dim=-1)
+        cells = torch.where(ok, words | (loc_t[:, None] << 16), -1).reshape(E, A, -1)
+        gplus = global_plus(state)
+        gw = torch.where(gplus > 0, (gplus - 1) | (GLOBAL_LOCATION << 16), -1)
+        return torch.cat([gw, cells], dim=-1)
+
+    def compact_inputs(state: EnvState) -> dict:
+        """B8's arguments: the candidate words of every agent as rows."""
+        E = state.obj_type.shape[0]
+        words = candidate_words(state, window_slices(**window_inputs(state)))
+        return dict(words=words.reshape(E * A, -1), T=T)
 
     if route in ("B1", "B4"):
         tail = obs_tail_static_v2 if route == "B1" else obs_tail_static_v1
@@ -546,7 +619,7 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
                 HP=HP_f,
                 WPC=WPC_f,
             )
-    else:  # B3, B5: the image built here, read by the kernel from device memory
+    elif route in ("B3", "B5"):  # the image built here, read by the kernel from device memory
         tail = obs_tail_dyn_v2 if route == "B3" else obs_tail_v1
         front = "gplus" if route == "B3" else "gwords"
 
@@ -590,7 +663,18 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
         swapped = ((w & 0xFF) << 16) | (w & 0xFF00) | ((w >> 16) & 0xFF)
         return swapped.view(torch.uint8).reshape(E, A, T, 4)[..., :3].contiguous()
 
-    if route in ("B1", "B2", "B3"):
+    if route == "nonfused":
+
+        def obs_fn(state: EnvState, obs_buf=None):
+            E = state.obj_type.shape[0]
+            args = compact_inputs(state)
+            attempted = (args["words"] >= 0).sum(dim=-1, dtype=torch.int32).view(E, A)
+            return unpack_v1(compact_rows(**args).view(E, A, T)), attempted
+
+        tail = tail_inputs = None
+        obs_fn.out_w, obs_fn.wide = T, None
+        obs_fn.window_inputs, obs_fn.compact_inputs = window_inputs, compact_inputs
+    elif route in ("B1", "B2", "B3"):
 
         def obs_fn(state: EnvState, obs_buf=None):
             out_words, attempted = tail(**tail_inputs(state), out_w=OUT_W, wide=wide)

@@ -57,8 +57,12 @@ class EnvState(NamedTuple):
     agent_action_prev_c: torch.Tensor  # int32[E, A]
     agent_swm: torch.Tensor  # int32[E, A]: steps without motion
 
-    aoe_inside: torch.Tensor  # bool[E, 1, 1, 1] (no AOE on this engine's path)
-    territory_inside: torch.Tensor  # int32[E, 1, 1] (no territories)
+    # bool[E, n_aoe_specs, N, A]: agent a inside source n's AOE k last tick
+    # ([E, 1, 1, 1] without AOE specs)
+    aoe_inside: torch.Tensor
+    # int32[E, n_territories, A]: the tag owning agent a's cell, -1 = none
+    # ([E, 1, 1] without territories)
+    territory_inside: torch.Tensor
 
     # --- stats ---
     game_stats: torch.Tensor  # f32[E, Sg]

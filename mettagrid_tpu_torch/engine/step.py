@@ -3,19 +3,21 @@
 Counterpart of the reference's engine/step.py. Phase order follows the
 reference MettaGrid::_step (cpp/bindings/mettagrid_c.cpp:921-1102):
 auto-reset (PufferEnv level) -> snapshot prev locations -> zero
-rewards/success -> step++ -> shuffled action streams by priority ->
-observations -> coverage, visited and token stats -> rewards -> truncation.
+rewards/success -> step++ -> shuffled action streams by priority -> events
+-> AOE effects -> territory effects -> observations -> coverage, visited
+and token stats -> rewards -> truncation.
 
-This port covers programs without on_tick handlers, AOE or territories
-whose action phase is the wave phase (the arena, combat and general presets):
-pure-move waves or footprint-scheduled handler-chain waves, events, and
-observations over a static or a mutable background through every fused tail
-but the opt-in v3 one (engine/obs.py: globals that can be absent, such as
-local position and value observations, and maps whose image is too large
-for one block's shared memory included). Other programs raise
-NotImplementedError naming the ROADMAP item that ports them. Every phase
-works out of place: a step never writes the tensors of the state it was
-given (the one exception is the carried observation buffer, see make_step).
+This port covers programs without on_tick handlers whose action phase is
+the wave phase (the arena, combat and general presets and the territory
+variant of tools/bench_run.py): pure-move waves or footprint-scheduled
+handler-chain waves, events, AOE and territories (engine/aoe.py,
+engine/territory.py), and observations over a static or a mutable
+background through every route but the opt-in v3 tails (engine/obs.py:
+the fused tails, and the non-fused path for the AOE mask and window rows
+wider than 128 lanes). Other programs raise NotImplementedError naming the
+ROADMAP item that ports them. Every phase works out of place: a step never
+writes the tensors of the state it was given (the one exception is the
+carried observation buffer, see make_step).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from mettagrid_tpu_torch.engine.actions_fast import (
     make_action_phase_fast,
     pure_move_ok,
 )
+from mettagrid_tpu_torch.engine.aoe import general_mutations, make_aoe_phase
 from mettagrid_tpu_torch.engine.events import make_event_phase
 from mettagrid_tpu_torch.engine.exec import PORTED_FILTERS
 from mettagrid_tpu_torch.engine.handlers import PORTED_MUTATIONS
@@ -40,6 +43,7 @@ from mettagrid_tpu_torch.engine.obs import build_static_bg, make_obs_fn, static_
 from mettagrid_tpu_torch.engine.program import AUTO_STAT_BASE, EngineProgram
 from mettagrid_tpu_torch.engine.rewards import make_reward_phase
 from mettagrid_tpu_torch.engine.state import EnvState, StepOutputs, resolve_device
+from mettagrid_tpu_torch.engine.territory import make_territory_phase
 
 # In-step auto-reset merge classes (reference step.py:46-76): fields whose
 # fresh value is a broadcastable constant, and the map-derived pool tables.
@@ -69,14 +73,8 @@ _DEAD_AT_RESET_MERGE = (
 )
 
 
-def _handler_kinds(h, filters: set, mutations: set):
-    """Collect the filter and mutation kinds reachable from a handler."""
-    if h is None:
-        return
-    if not isinstance(h, CompiledHandler):
-        for c in h.handlers:
-            _handler_kinds(c, filters, mutations)
-        return
+def _chain_kinds(chain_filters, chain_mutations, filters: set, mutations: set):
+    """Collect the filter and mutation kinds of a filter and mutation chain."""
 
     def walk_filter(f):
         filters.add(f.kind)
@@ -88,10 +86,21 @@ def _handler_kinds(h, filters: set, mutations: set):
         for s in m.on_success:
             walk_mutation(s)
 
-    for f in h.filters:
+    for f in chain_filters:
         walk_filter(f)
-    for m in h.mutations:
+    for m in chain_mutations:
         walk_mutation(m)
+
+
+def _handler_kinds(h, filters: set, mutations: set):
+    """Collect the filter and mutation kinds reachable from a handler."""
+    if h is None:
+        return
+    if not isinstance(h, CompiledHandler):
+        for c in h.handlers:
+            _handler_kinds(c, filters, mutations)
+        return
+    _chain_kinds(h.filters, h.mutations, filters, mutations)
 
 
 def _unported(program: EngineProgram, reference_rng: bool = False):
@@ -101,8 +110,12 @@ def _unported(program: EngineProgram, reference_rng: bool = False):
     handlers = [mh.handler for mh in program.move_handlers]
     handlers += list(program.on_use_handlers) + list(program.on_after_use_handlers)
     handlers += [ev.handler for ev in program.events]
+    for spec in program.territories:
+        handlers += [spec.on_enter, spec.on_exit, spec.presence]
     for h in handlers:
         _handler_kinds(h, filters, mutations)
+    for spec in program.aoe_specs:
+        _chain_kinds(spec.filters, general_mutations(spec), filters, mutations)
     for ev in program.events:
         q = ev.target_query
         if q.kind != "tag" or q.order_random:
@@ -114,8 +127,6 @@ def _unported(program: EngineProgram, reference_rng: bool = False):
         missing.append(f"mutation kinds {sorted(mutations - PORTED_MUTATIONS)} (ROADMAP Queue 1 item 7)")
     if any(h is not None for h in program.on_tick_handlers) or program.game_on_tick is not None:
         missing.append("on_tick handlers (ROADMAP Queue 1 item 8)")
-    if program.aoe_specs or program.territories:
-        missing.append("AOE and territories (ROADMAP Queue 1 item 10)")
     if program.materialized:
         missing.append("materialized queries (ROADMAP Queue 1 item 7)")
     if reference_rng:
@@ -218,8 +229,12 @@ def _fresh_state_from_pool(
         agent_action_prev_r=agent_r.clone(),
         agent_action_prev_c=agent_c.clone(),
         agent_swm=torch.zeros((E, A), dtype=torch.int32, device=dev),
-        aoe_inside=torch.zeros((E, 1, 1, 1), dtype=torch.bool, device=dev),
-        territory_inside=torch.full((E, 1, 1), -1, dtype=torch.int32, device=dev),
+        aoe_inside=torch.zeros(
+            (E, len(program.aoe_specs), N, A) if program.aoe_specs else (E, 1, 1, 1), dtype=torch.bool, device=dev
+        ),
+        territory_inside=torch.full(
+            (E, len(program.territories), A) if program.territories else (E, 1, 1), -1, dtype=torch.int32, device=dev
+        ),
         game_stats=game_stats0,
         agent_stats=agent_stats0,
         game_stats_prev=torch.zeros((E, Sg), dtype=torch.float32, device=dev),
@@ -457,6 +472,8 @@ def make_step(
     lazy_grid = use_pure and static_background_ok(program)
     action_phase = make_action_phase_fast(program, pure_move=use_pure, lazy_grid=lazy_grid)
     event_phase = make_event_phase(program)
+    aoe_phase = make_aoe_phase(program)
+    territory_phase = make_territory_phase(program)
     obs_fn = _make_obs_fn_for(program, init, dev)
     reward_phase = make_reward_phase(program)
     coverage_phase = make_coverage_phase(program)
@@ -563,6 +580,14 @@ def make_step(
                     N = state.obj_type.shape[1]
                     event_ranks = torch.rand((E, event_phase.num_rank_rows, N), generator=generator, device=dev)
                 state = event_phase(state, event_ranks)
+
+        # --- AOE effects, then territory effects (mettagrid_c.cpp:1031-1042) ---
+        if aoe_phase is not None:
+            with record_function("step.aoe"):
+                state = aoe_phase(state)
+        if territory_phase is not None:
+            with record_function("step.territory"):
+                state = territory_phase(state)
 
         # --- observations (before rewards, like the reference) ---
         with record_function("step.obs"):

@@ -22,6 +22,14 @@ and three that take the observation routes off the v2 fast path:
   shared memory, so the v2 tail over a per-env image in device memory
   (kernel B3).
 
+and one that takes the non-fused observation path:
+
+* ``territory``: the flagship on maps with two junctions of each of two
+  teams; each junction controls the territory "zone" (whose enter, exit and
+  presence handlers change the agents' armor and give hearts) and emits an
+  AOE that charges agents of its team, and the observations carry the AOE
+  mask, so kernels B7 and B8.
+
 Each runs over a pool of random maps (25x25 but for arena_128) whose seeds
 come from np.random.default_rng(0).
 """
@@ -41,7 +49,7 @@ AGENTS = 24
 ENVS = 4096
 POOL = 64
 WARMUP = 8
-VARIANTS = ("flagship", "combat", "general", "arena_lp", "general_lp", "arena_128")
+VARIANTS = ("flagship", "combat", "general", "arena_lp", "general_lp", "arena_128", "territory")
 
 
 def make_general_cfg(num_agents: int):
@@ -90,11 +98,59 @@ def make_combat_cfg(num_agents: int):
     return cfg
 
 
+def make_territory_cfg(num_agents: int):
+    """The arena with territories and AOE, built from documented options in
+    the shape of the reference's territory game (docs/territory.md): agents
+    of team cogs on 25x25 maps with two junctions of each of the teams cogs
+    and clips. Each junction controls the territory "zone" (default strength
+    1024 and decay 256, about four cells) and emits an AOE of radius 2 that
+    gives agents of its team a heart each tick and armor while inside.
+    Entering owned territory gives armor, leaving takes it back, and each
+    tick in territory of the agent's team gives a heart. The observations
+    carry the AOE mask."""
+    from mettagrid_tpu_torch.config.game_config import GridObjectConfig
+    from mettagrid_tpu_torch.config.handler_config import (
+        AOEConfig,
+        EntityTarget,
+        Handler,
+        ResourceDeltaMutation,
+        SharedTagPrefixFilter,
+    )
+    from mettagrid_tpu_torch.config.territory_config import TerritoryConfig, TerritoryControlConfig
+
+    def delta(resource, amount):
+        return ResourceDeltaMutation(target=EntityTarget.TARGET, deltas={resource: amount})
+
+    same_team = SharedTagPrefixFilter(tag_prefix="team")
+    cfg = make_arena(num_agents, combat=False, map_builder=RandomMapBuilder.Config(
+        agents=num_agents, width=25, height=25, border_width=1,
+        objects={"wall": 10, "junction_cogs": 2, "junction_clips": 2}))
+    cfg.game.agent.tags = ["team:cogs"]
+    for team in ("cogs", "clips"):
+        name = f"junction_{team}"
+        cfg.game.objects[name] = GridObjectConfig(
+            name=name, map_name=name, tags=[f"team:{team}"],
+            territory_controls=[TerritoryControlConfig(territory="zone")],
+            aoes={"charge": AOEConfig(name="charge", radius=2, filters=[same_team], mutations=[delta("heart", 1)],
+                                      presence_deltas={"armor": 1})},
+        )
+    cfg.game.territories = {"zone": TerritoryConfig(
+        tag_prefix="team",
+        on_enter=Handler(name="enter", mutations=[delta("armor", 1)]),
+        on_exit=Handler(name="exit", mutations=[delta("armor", -1)]),
+        presence=Handler(name="income", filters=[same_team], mutations=[delta("heart", 1)]),
+    )}
+    cfg.game.obs.aoe_mask = True
+    return cfg
+
+
 def make_cfg(variant: str, num_agents: int = AGENTS):
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
     if variant == "combat":
         return make_combat_cfg(num_agents)
+    if variant == "territory":
+        return make_territory_cfg(num_agents)
     if variant.startswith("general"):
         cfg = make_general_cfg(num_agents)
     elif variant == "arena_128":

@@ -3,9 +3,9 @@
     python -m mettagrid_tpu_torch.tools.profile_step [--variant V] [--out PATH]
 
 V is one of tools/bench_run.py's variants: flagship (the default), combat,
-general, arena_lp, general_lp, arena_128. Steps the variant (4096 envs x 24
-agents, a pool of 64 maps, auto-reset, observations carried) on the CUDA
-device. After the warm-up it times 32 steps by the host clock without the
+general, arena_lp, general_lp, arena_128, territory. Steps the variant
+(4096 envs x 24 agents, a pool of 64 maps, auto-reset, observations
+carried) on the CUDA device. After the warm-up it times 32 steps by the host clock without the
 profiler, then traces 32 more with torch.profiler and reports, per step:
 the host time of each step phase (the ``step.*`` spans of engine/step.py)
 and the device time of the kernels that start inside it, the device's busy

@@ -64,7 +64,7 @@ def _build(eng, cfg, seeds):
     maps = []
     for s in seeds:
         b.config.seed = s
-        maps.append(b.build_for_num_agents(A))
+        maps.append(b.build_for_num_agents(program.num_agents))
     return program, eng.build_env_init(program, maps)
 
 
@@ -104,12 +104,13 @@ def _jax_draws(jstate, P: int, n_rows: int, N: int):
     return np.array(maps, dtype=np.int32), np.array(ranks)
 
 
-def _lockstep(jcfg, tcfg, n_steps, seeds=(3, 4, 5), seed=0, check=None):
-    """Steps both engines in lockstep, comparing after every step, and calls
-    check(jax_state, port_state) after each. Returns counters of what the
-    run exercised."""
+def _lockstep(jcfg, tcfg, n_steps, seeds=(3, 4, 5), seed=0, check=None, E=E):
+    """Steps E envs of both engines in lockstep, comparing after every step,
+    and calls check(jax_state, port_state, port_outputs) after each. Returns
+    counters of what the run exercised."""
     jp, ji = _build(jengine, jcfg, seeds)
     tp, ti = _build(tengine, tcfg, seeds)
+    A = jp.num_agents
     jstate, jout = jengine.make_reset(jp, ji, E)(0)
     jstep = jengine.make_step(jp, ji, auto_reset=True, donate=False, external_perm=True)
     tstep = tengine.make_step(tp, ti, auto_reset=True, external_perm=True, device="cpu")
@@ -142,7 +143,7 @@ def _lockstep(jcfg, tcfg, n_steps, seeds=(3, 4, 5), seed=0, check=None):
         _assert_states_equal(jnp_state, tstate, where=f"step {i}: ")
         jbuf, tbuf = jout.observations, tout.observations
         if check is not None:
-            check(jstate, tstate)
+            check(jstate, tstate, tout)
         seen["hearts_lost"] += int(jnp_state["auto_stats"][..., R + heart].sum() > 0)
         stayed = (jnp_state["obj_r"][:, :A] == jnp_state["agent_prev_r"]) & (
             jnp_state["obj_c"][:, :A] == jnp_state["agent_prev_c"]

@@ -92,7 +92,7 @@ def test_merge_skips_the_grid_only_where_no_phase_writes_it(kind, monkeypatch):
     monkeypatch.setenv("METTAGRID_TPU_NO_MERGE_SKIP", "1")
     jcfg, tcfg = _cfgs(kind)
 
-    def grid_is_true(jstate, tstate):
+    def grid_is_true(jstate, tstate, tout):
         np.testing.assert_array_equal(tstate.grid.numpy(), true_grid(tstate, A).numpy())
 
     seen = _lockstep(jcfg, tcfg, 45, seeds=(3,), check=grid_is_true)

@@ -84,7 +84,7 @@ def test_lockstep_matches_jax(variant, kernel):
     fixed = sum([g.episode_completion_pct, g.last_action, g.last_action_move, g.last_reward])
     seen = dict(on_spawn=0, off_spawn=0, absent=0, present=0)
 
-    def check(jstate, tstate):
+    def check(jstate, tstate, tout):
         on = (tstate.obj_r[:, :A] == tstate.agent_spawn_r) & (tstate.obj_c[:, :A] == tstate.agent_spawn_c)
         seen["on_spawn"] += int(on.sum())
         seen["off_spawn"] += int((~on).sum())
@@ -160,19 +160,24 @@ def test_large_map_routes_at_build_time(local_position, kernel, background):
         (True, False, False, "B3"),
         (False, False, True, "B5"),
         (False, False, False, "B5"),
+        (False, True, True, "nonfused"),
+        (False, False, False, "nonfused"),
     ],
 )
 def test_tail_route_table(v2_ok, static, fits, route):
     """make_obs_fn's routing table: the v2 gate, the background kind and the
-    shared-memory fit pick the tail kernel."""
-    assert tobs.tail_route(v2_ok, static, fits) == route
+    shared-memory fit pick the tail kernel, unless no fused tail takes the
+    config (an AOE mask, or window rows wider than 128 lanes): then the
+    non-fused path, whatever the rest."""
+    assert tobs.tail_route(v2_ok, static, fits, fused=route != "nonfused") == route
 
 
 def test_geometry_outside_both_gates_raises():
     """Window rows wider than 128 lanes (OW * S > 128: a 15-wide window over
     the armed combat config's 9 token slots per cell in base 4) fail the v2
-    and the v1 gate: make_obs_fn names the ROADMAP item of the non-fused
-    path."""
+    and the v1 gate. make_obs_fn no longer raises for them: it routes them to
+    the non-fused path (kernels B7 and B8), whose observations
+    tests/test_torch_obs_nonfused.py holds to the JAX engine."""
     from mettagrid_tpu_torch.tools.bench_run import make_combat_cfg
 
     cfg = make_combat_cfg(4)
@@ -183,5 +188,6 @@ def test_geometry_outside_both_gates_raises():
     b = cfg.game.map_builder.create()
     b.config.seed = 1
     init = tengine.build_env_init(program, [b.build_for_num_agents(4)])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        tobs.make_obs_fn(program, tobs.build_static_bg(program, init, "cpu"))
+    assert program.obs_width * tobs.make_stage1(program).num_slots > 128
+    fn = tobs.make_obs_fn(program, tobs.build_static_bg(program, init, "cpu"))
+    assert fn.route == "nonfused"

@@ -1,0 +1,236 @@
+"""The port's territory and AOE phases against the JAX engine, exactly.
+
+The ``territory`` bench variant (tools/bench_run.make_territory_cfg: agents
+of one team, junctions of two teams that control the territory "zone" and
+emit an AOE, the AOE mask in the observations) is converted to the JAX
+engine's config classes field for field, so both engines compile the same
+program. Both then step in lockstep from the JAX reset state, fed the same
+actions, agent orders and reset maps (the JAX engine's own draws, as
+tests/test_torch_general.py feeds them). Every output and every state field
+but ``rng`` (``aoe_inside`` and ``territory_inside`` included) must be
+equal after every step (tolerance: exact; payloads are integers, float
+stats and rewards sums of small integers).
+
+The reference does not walk territory handlers, nor AOE presence deltas,
+when it decides which pool fields a program can write
+(mutfields.maybe_written_pool_fields, ROADMAP Queue 3): with a one-map pool
+its auto-reset merge then skips ``obj_inv`` and inventories leak across
+episodes. The port walks them; it is held to the reference run with
+METTAGRID_TPU_NO_MERGE_SKIP=1, and the leak of the reference's own merge is
+shown. Its gridless gate walks territory handlers too, and a territory whose
+prefix names no tag raises when the phase or the observations are built.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import mettagrid_tpu.engine as jengine
+from mettagrid_tpu.config.game_config import MettaGridConfig as JMettaGridConfig
+from mettagrid_tpu.engine.actions_fast import gridless_batch_ok as jax_gridless_batch_ok
+from mettagrid_tpu.engine.mutfields import maybe_written_pool_fields as jax_maybe_written_pool_fields
+from mettagrid_tpu.maps.random_map import RandomMapBuilder as JRandomMapBuilder
+from mettagrid_tpu_torch import engine as tengine
+from mettagrid_tpu_torch.config.handler_config import (
+    AOEConfig,
+    EntityTarget,
+    Handler,
+    ResourceDeltaMutation,
+    SwapMutation,
+)
+from mettagrid_tpu_torch.config.territory_config import TerritoryConfig
+from mettagrid_tpu_torch.engine import obs as tobs
+from mettagrid_tpu_torch.engine.actions_fast import gridless_batch_ok
+from mettagrid_tpu_torch.engine.mutfields import maybe_written_pool_fields
+from mettagrid_tpu_torch.tools import bench_run
+from tests.test_torch_general import E, _build, _lockstep
+from tests.test_torch_host_compile import _norm
+
+
+def jax_twin(cfg):
+    """The JAX engine's config equal to the port's ``cfg`` (a random map
+    builder is rebuilt from its fields)."""
+    d = cfg.model_dump()
+    mb = d["game"].pop("map_builder")
+    jcfg = JMettaGridConfig.model_validate(d)
+    jcfg.game.map_builder = JRandomMapBuilder.Config(**{k: v for k, v in mb.items() if k != "type"})
+    return jcfg
+
+
+def _cfgs(max_steps, agents=24, change=None):
+    """(JAX config, port config) of the territory variant, changed in place
+    by ``change(cfg)``."""
+    cfg = bench_run.make_cfg("territory", agents)
+    cfg.game.max_steps = max_steps
+    if change is not None:
+        change(cfg)
+    return jax_twin(cfg), cfg
+
+
+def _no_aoe(cfg):
+    for name in ("junction_cogs", "junction_clips"):
+        cfg.game.objects[name].aoes = {}
+
+
+def _observed(seen, program):
+    """A lockstep check that counts AOE mask tokens by value, the agents'
+    hearts and armor, agents inside owned territory and inside some AOE."""
+    heart = list(program.resource_names).index("heart")
+    armor = list(program.resource_names).index("armor")
+    fid = program.feature_ids.aoe_mask
+    A = program.num_agents
+
+    def check(jstate, tstate, tout):
+        obs = tout.observations.numpy()
+        vals = obs[..., 2][obs[..., 1] == fid]
+        for v in (1, 2):
+            seen[f"mask_{v}"] = seen.get(f"mask_{v}", 0) + int((vals == v).sum())
+        seen["hearts"] = max(seen.get("hearts", 0), int(tstate.obj_inv[:, :A, heart].sum()))
+        seen["armor"] = max(seen.get("armor", 0), int(tstate.obj_inv[:, :A, armor].sum()))
+        seen["in_territory"] = seen.get("in_territory", 0) + int((tstate.territory_inside >= 0).sum())
+        seen["in_aoe"] = seen.get("in_aoe", 0) + int(tstate.aoe_inside.sum())
+        seen["overlap"] = max(seen.get("overlap", 0), int(tstate.aoe_inside.sum(dim=2).max()))
+
+    return check
+
+
+def test_territory_cfg_compiles_like_jax():
+    """At bench size (24 agents, a pool of three 25x25 maps) the variant
+    compiles to the reference's program and EnvInit; it takes the mutable
+    background and the non-fused observation path."""
+    rng = np.random.default_rng(0)
+    seeds = [int(rng.integers(0, 2**31 - 1)) for _ in range(3)]
+    tp, ti = bench_run.build_pool(bench_run.make_cfg("territory"), 3)
+    jp, ji = _build(jengine, jax_twin(bench_run.make_cfg("territory")), seeds)
+    assert _norm(tp) == _norm(jp)
+    for f in ti.__dataclass_fields__:
+        np.testing.assert_array_equal(getattr(ti, f), getattr(ji, f), err_msg=f)
+    assert len(tp.aoe_specs) == 2 and len(tp.territories) == 1
+    assert not tobs.static_background_ok(tp)
+    assert tobs.make_obs_fn(tp, None, "cpu").route == "nonfused"
+
+
+def test_lockstep_matches_jax():
+    """40 steps with max_steps=24 over a pool of three maps: every env
+    auto-resets once onto the JAX engine's map draw; agents enter and leave
+    owned territory and AOEs, gain hearts and armor, and see both friendly
+    and enemy AOE mask tokens."""
+    jcfg, tcfg = _cfgs(24)
+    seen = {}
+    seen.update(_lockstep(jcfg, tcfg, 40, check=_observed(seen, tengine.compile_program(tcfg))))
+    assert seen["resets"] == E
+    assert seen["mask_1"] > 0 and seen["mask_2"] > 0, "no friendly or no enemy AOE mask token"
+    assert seen["hearts"] > 0 and seen["armor"] > 0, "income or armor never reached an agent"
+    assert seen["in_territory"] > 0 and seen["in_aoe"] > 0
+
+
+@pytest.mark.parametrize("site", ["territory", "aoe_presence"])
+def test_written_fields_walk_territory_and_presence_sites(site):
+    """Territory handlers and AOE presence deltas write the agents'
+    inventories: the port's maybe_written_pool_fields says so; the
+    reference's does not (the merge-skip fault)."""
+
+    def change(cfg):
+        _no_aoe(cfg)
+        if site == "aoe_presence":
+            cfg.game.territories = {}
+            cfg.game.obs.aoe_mask = False
+            for name in ("junction_cogs", "junction_clips"):
+                cfg.game.objects[name].territory_controls = []
+            buff = AOEConfig(name="buff", radius=2, presence_deltas={"armor": 1})
+            cfg.game.objects["junction_cogs"].aoes = {"buff": buff}
+
+    jcfg, tcfg = _cfgs(16, change=change)
+    assert "obj_inv" in maybe_written_pool_fields(tengine.compile_program(tcfg))
+    assert "obj_inv" not in jax_maybe_written_pool_fields(jengine.compile_program(jcfg))
+
+
+def test_one_map_pool_matches_jax_without_merge_skip(monkeypatch):
+    """Territories without AOE on a one-map pool, 40 steps with
+    max_steps=16 (two auto-resets per env): the port's merge, which keeps
+    obj_inv, equals the reference without its merge skip; the reference's
+    own skip carries the last episode's hearts and armor into the next."""
+    monkeypatch.setenv("METTAGRID_TPU_NO_MERGE_SKIP", "1")
+    jcfg, tcfg = _cfgs(16, change=_no_aoe)
+    seen = {}
+    seen.update(_lockstep(jcfg, tcfg, 40, seeds=(3,), check=_observed(seen, tengine.compile_program(tcfg))))
+    assert seen["resets"] == 2 * E
+    assert seen["hearts"] > 0 and seen["armor"] > 0
+
+    # The reference with and without its skip, on the same moves, across
+    # the first auto-reset (step 17).
+    jp, ji = _build(jengine, jcfg, (3,))
+    fresh = np.asarray(ji.obj_inv[0, : jp.num_agents])
+    inv = {}
+    for skip in (False, True):
+        if skip:
+            monkeypatch.delenv("METTAGRID_TPU_NO_MERGE_SKIP")
+        state, _ = jengine.make_reset(jp, ji, E)(0)
+        step = jengine.make_step(jp, ji, auto_reset=True, donate=False)
+        rng = np.random.default_rng(0)
+        for _ in range(17):
+            acts = jnp.asarray(rng.integers(0, 5, (E, jp.num_agents)), dtype=jnp.int32)
+            state, _ = step(state, acts, jnp.zeros_like(acts))
+        assert int(state.step_count.max()) == 1
+        inv[skip] = np.asarray(state.obj_inv[:, : jp.num_agents])
+    # One step into the new episode an agent holds at most a heart and an
+    # armor of that step; with the skip it still holds the last episode's.
+    assert (inv[False] - fresh).max() <= 2
+    assert (inv[True] - fresh).max() > 2
+
+
+def test_gridless_gate_walks_territory_handlers():
+    """A territory handler that moves objects (a swap) makes the wave batch
+    unsafe without the grid: the port's gate says so, the reference's does
+    not look."""
+
+    def change(cfg):
+        _no_aoe(cfg)
+        cfg.game.territories["zone"].presence = Handler(name="shove", mutations=[SwapMutation()])
+
+    jcfg, tcfg = _cfgs(16, change=change)
+    base_j, base_t = _cfgs(16, change=_no_aoe)
+    assert jax_gridless_batch_ok(jengine.compile_program(base_j)) and gridless_batch_ok(tengine.compile_program(base_t))
+    assert jax_gridless_batch_ok(jengine.compile_program(jcfg))
+    assert not gridless_batch_ok(tengine.compile_program(tcfg))
+
+
+def test_empty_territory_tag_table_raises():
+    """A territory whose prefix names no tag raises ValueError naming it when
+    the step or the observation function is built, not while stepping."""
+
+    def change(cfg):
+        cfg.game.territories = {"realm": TerritoryConfig(tag_prefix="nation")}
+        for name in ("junction_cogs", "junction_clips"):
+            cfg.game.objects[name].territory_controls[0].territory = "realm"
+
+    _, tcfg = _cfgs(16, change=change)
+    program, init = _build(tengine, tcfg, (3,))
+    with pytest.raises(ValueError, match="territory 'realm'"):
+        tengine.make_step(program, init, device="cpu")
+    with pytest.raises(ValueError, match="territory 'realm'"):
+        tobs.make_obs_fn(program, None, "cpu")
+
+
+def test_aoe_general_mutations_match_jax():
+    """An AOE whose mutation runs per (source, agent) pair (the junction pays
+    a heart from its own inventory for each agent it reaches) over four
+    unfiltered junctions of radius 6, so that agents stand in both sources
+    of one type at once: 20 steps of 8 agents, pool 3, in lockstep."""
+
+    def change(cfg):
+        for name in ("junction_cogs", "junction_clips"):
+            obj = cfg.game.objects[name]
+            obj.inventory.initial = {"heart": 6}
+            obj.aoes = {"pay": AOEConfig(name="pay", radius=6, mutations=[
+                ResourceDeltaMutation(target=EntityTarget.ACTOR, deltas={"heart": -1}),
+                ResourceDeltaMutation(target=EntityTarget.TARGET, deltas={"heart": 1}),
+            ])}
+
+    jcfg, tcfg = _cfgs(12, agents=8, change=change)
+    program = tengine.compile_program(tcfg)
+    assert any(m.kind == "resource_delta" and m.target_is_actor for s in program.aoe_specs for m in s.mutations)
+    seen = {}
+    seen.update(_lockstep(jcfg, tcfg, 20, check=_observed(seen, program)))
+    assert seen["overlap"] >= 2, "no agent stood in two sources of one AOE at once"
+    assert seen["hearts"] > 0
