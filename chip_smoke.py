@@ -31,7 +31,8 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
    that the melee handler applied; prints env-steps/s;
 8. combat main path: the same for the combat config, whose static
    background takes B1 with wide packing; checks B1's launches and that
-   attacks lowered hearts;
+   attacks lowered hearts; then holds B1 equal to its plain version on the
+   path's last state (both packings) and times it in wide packing;
 9. GPU against CPU on the general config: 64 envs, max_steps 24, a pool of
    three maps, agent orders, reset maps and event ranks from numpy, 48
    steps, for the bench config and with the combat config's starting
@@ -84,7 +85,14 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
     max_steps 24, pool 3, 48 steps) and on arena_mood_v3 under
     reference_rng: every output and every state field but rng byte-equal,
     mt included; under reference_rng nothing but the actions and the reset
-    maps is fed.
+    maps is fed;
+21. B1 and B2 against their plain versions on seeded synthetic inputs,
+    normal and wide packing, word for word: 1, 7, 133 and 4099 envs (below,
+    near and above the persistent grid), windows crossing the image edge,
+    an out_w below the valid count, and an image (B1) or object tables (B2)
+    that fit one stage but not two, so both the staged-ahead and the
+    single-stage modes run; prints each launch's grid, warps per block,
+    stages, shared memory, registers and blocks per SM.
 
 Every phase asserts. The line before the last is the kernels' JSON record;
 the last line is {"ok": true, "device": {...}}. With no CUDA device, or
@@ -233,6 +241,13 @@ def _tail_record(torch, obs_fn, state):
     return _record(name, err, kernel_ms, plain_ms, bytes_in + bytes_out, ops)
 
 
+def _plan_note(kernel) -> str:
+    """The launch plan of a persistent tail's last launch (B1, B2)."""
+    p = kernel.last_launch
+    return (f"grid {p['grid']} ({p['blocks_per_sm']} blocks per SM), {p['warps']} warps, {p['stages']} stage(s), "
+            f"{p['smem_bytes']} bytes of shared memory, {p['registers']} registers")
+
+
 def _record(name: str, err: int, kernel_ms: float, plain_ms: float, bytes_moved: int, ops: int) -> dict:
     """A kernel's entry of the kernels line; the bound is the larger of the
     bytes over the card's memory rate and the operations over its scalar
@@ -304,7 +319,8 @@ def _main_path(torch, card: str):
     state, out = flagship.run(*flagship.reset(0), 16)
     record = _tail_record(torch, flagship.step.obs_fn, state)
     print(f"[3] B1 equal to its plain version (normal and wide packing): kernel {record['ms']:.4f} ms, "
-          f"plain {record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms", flush=True)
+          f"plain {record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms; {_plan_note(obs_tail_static_v2)}",
+          flush=True)
 
     # --- phase 4: the main path, counts from 0 ---
     n_timed = 64
@@ -413,8 +429,8 @@ def _general_paths(torch, card: str):
     assert float(state.game_stats[:, event_stat].min()) >= 4, "the event did not fire at steps 4 and 20"
     record = _tail_record(torch, general.step.obs_fn, state)
     print(f"[6] B2 equal to its plain version (normal and wide packing) on the general state after 24 steps: "
-          f"kernel {record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms",
-          flush=True)
+          f"kernel {record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms; "
+          f"{_plan_note(obs_tail_dynobj_v2)}", flush=True)
 
     # --- phase 7: the general main path, counts from 0 ---
     n_timed = 32
@@ -439,6 +455,10 @@ def _general_paths(torch, card: str):
           f"{ENVS * n_timed / dt:.0f} env-steps/s, {dt / n_timed * 1e3:.3f} ms/step (host clock over {n_timed} "
           f"steps) on {card}; B1 launches with wide packing {wide_launches}; hearts lost to attacks {hearts_lost}",
           flush=True)
+    wide = _tail_record(torch, combat.step.obs_fn, state)
+    print(f"[8] B1 equal to its plain version (normal and wide packing) on the combat state: kernel (wide) "
+          f"{wide['ms']:.4f} ms, plain {wide['plain_ms']:.4f} ms, bound {wide['bound_ms']:.4f} ms; "
+          f"{_plan_note(obs_tail_static_v2)}", flush=True)
     return record
 
 
@@ -597,6 +617,86 @@ def _general_gpu_vs_cpu(torch, armed: bool):
     return program, trace
 
 
+def _window_geom(torch, OH: int, OW: int):
+    """(u, v, loc) rows of an OH x OW window in Manhattan order from its
+    centre, loc = u << 4 | v (the port's location byte)."""
+    hr, wr = OH // 2, OW // 2
+    cells = sorted(((u, v) for u in range(OH) for v in range(OW)), key=lambda c: (abs(c[0] - hr) + abs(c[1] - wr), c))
+    return torch.tensor([[u, v, (u << 4) | v] for u, v in cells], dtype=torch.int32, device="cuda")
+
+
+def _synthetic_tail_args(torch, kind: str, E: int, HP: int, WPC: int, S: int, N: int, seed: int, A: int = 24,
+                         G: int = 3, OH: int = 11, OW: int = 11, fill: float = 0.4):
+    """Seeded inputs of B1 ("B1") or B2 ("B2") at E envs: agents' windows
+    mostly inside the image and a fifth of them anywhere, crossing its
+    edges; B2's objects partly dead (zero words), partly outside the image,
+    and some pairs on one cell. Returns (args, windows crossing an edge)."""
+    rng = np.random.default_rng(seed)
+
+    def words(shape, p):
+        return np.where(rng.random(shape) < p, rng.integers(1, 1 << 16, shape), 0).astype(np.int32)
+
+    r0 = rng.integers(0, HP - OH + 1, (E, A))
+    l0 = rng.integers(0, (WPC - OW * S) // S + 1, (E, A)) * S
+    anywhere = rng.random((E, A)) < 0.2
+    r0 = np.where(anywhere, rng.integers(-OH + 1, HP, (E, A)), r0)
+    l0 = np.where(anywhere, rng.integers(-OW + 1, WPC // S, (E, A)) * S, l0)
+    crossing = int(((r0 < 0) | (r0 + OH > HP) | (l0 < 0) | (l0 + OW * S > WPC)).sum())
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).cuda()  # noqa: E731
+    args = dict(row0=t(r0), lane0=t(l0), gplus=t(words((E, A, G), 0.9)), geom=_window_geom(torch, OH, OW))
+    if kind == "B1":
+        P = 5
+        args.update(static_imgp=t(words((P, HP, WPC), fill)), map_idx=t(rng.integers(0, P, E)),
+                    rext=t(r0 + OH // 2), lext=t(l0 + (OW // 2) * S), words=t(words((E, A, S), 0.7)))
+    else:
+        rext = rng.integers(-2, HP + 2, (E, N))
+        lext = rng.integers(-2, WPC // S + 2, (E, N)) * S
+        rext[:, 1], lext[:, 1] = rext[:, 0], lext[:, 0]  # two objects on one cell
+        w = words((E, N, S), 0.8)
+        w[rng.random((E, N)) < 0.2] = 0  # dead objects
+        args.update(rext=t(rext), lext=t(lext), words=t(w), HP=HP, WPC=WPC)
+    return args, crossing
+
+
+def _synthetic_tails(torch):
+    """Phase 21: B1 and B2 against their plain versions on seeded synthetic
+    inputs, both packings, at every shape the persistent design branches on:
+    E below, near and above the persistent grid, windows crossing the image
+    edge (the checked loop), an out_w below the valid count (dropped ranks),
+    and images or object tables that fit one stage but not two (the
+    single-stage mode). Prints each launch's plan."""
+    wrappers = _wrappers()
+    cases = [("B1", E, 48, 128, 3, 0, 256) for E in (1, 7, 133, 4099)]
+    cases += [("B1", 133, 48, 128, 3, 0, 64), ("B1", 133, 40, 768, 3, 0, 256)]
+    cases += [("B2", E, 48, 256, 6, 130, 512) for E in (1, 7, 133, 4099)]
+    cases += [("B2", 133, 48, 256, 6, 1500, 128), ("B2", 133, 48, 256, 6, 3000, 512)]
+    modes = set()
+    for i, (kind, E, HP, WPC, S, N, out_w) in enumerate(cases):
+        name = "obs_tail_static_v2" if kind == "B1" else "obs_tail_dynobj_v2"
+        kernel, plain = wrappers[name]
+        args, crossing = _synthetic_tail_args(torch, kind, E, HP, WPC, S, N, seed=2100 + i)
+        for wide in (False, True):
+            got_w, got_a = kernel(**args, out_w=out_w, wide=wide)
+            ref_w, ref_a = plain(**args, out_w=out_w, wide=wide)
+            torch.cuda.synchronize()
+            assert torch.equal(got_w, ref_w), f"{kind} words differ from the plain version (case {i}, wide {wide})"
+            assert torch.equal(got_a, ref_a), f"{kind} attempted counts differ from the plain version (case {i})"
+        plan = kernel.last_launch
+        modes.add((kind, plan["stages"] > 1))
+        dropped = int((ref_a - out_w).clamp(min=0).sum())
+        print(f"[21] {kind} equal to its plain version (normal and wide packing): E {E}, image {HP}x{WPC}, S {S}"
+              f"{f', N {N}' if kind == 'B2' else ''}, out_w {out_w}; {crossing} windows cross the image edge, "
+              f"{dropped} ranks dropped; grid {plan['grid']} ({plan['blocks_per_sm']} blocks per SM on {plan['sms']} "
+              f"SMs), {plan['warps']} warps per block, {plan['stages']} stage(s), "
+              f"{plan['smem_bytes']} bytes of shared memory, {plan['registers']} registers, {plan['rounds']} rounds",
+              flush=True)
+        assert crossing > 0 or E < 7, "no window crosses the image edge"
+        if out_w < 256:
+            assert dropped > 0, "no rank was dropped"
+        del args, got_w, got_a, ref_w, ref_a
+    assert modes == {("B1", True), ("B1", False), ("B2", True), ("B2", False)}, f"stage modes run: {modes}"
+
+
 def main() -> int:
     import torch
 
@@ -673,7 +773,8 @@ def main() -> int:
         print(f"[20] GPU path equals the CPU path on {variant}{rrng_note} over 48 steps of 64 envs, pool of 3 maps, "
               "with auto-resets (every output, every state field but rng, mt included)", flush=True)
 
-    print(f"[20] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    _synthetic_tails(torch)
+    print(f"[21] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6a, b6b, b7, b8]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -10,7 +10,7 @@ from the reference), the pure-relocation wave loop of the arena preset, and
 the exact footprint-schedule wave loop whose batches run handler chains
 (DirectAttack, relocate, UseTarget) for the combat and general presets. The
 conservative Chebyshev wave loop, which programs with longer-range move
-handlers need, raises NotImplementedError (ROADMAP Queue 1 item 7).
+handlers need, raises NotImplementedError (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -456,7 +456,7 @@ def make_action_phase_fast(program: EngineProgram, pure_move: bool = False, lazy
     if not (pure_move or footprint_schedule_ok(program)):
         raise NotImplementedError(
             "the Chebyshev wave loop for move handlers beyond range 1 is not ported yet "
-            "(ROADMAP Queue 1 item 7)"
+            "(ROADMAP Queue 1 item 2)"
         )
     apply_move_batch = make_apply_move_batch(program)
     n_actions = len(program.action_names)

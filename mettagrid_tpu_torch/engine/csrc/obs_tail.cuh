@@ -1,10 +1,12 @@
-// The observation tail shared by kernels B1 (obs_tail_static_v2.cu), B2
-// (obs_tail_dynobj_v2.cu), B3 (obs_tail_dyn_v2.cu), B4 (obs_tail_static_v1.cu),
-// B5 (obs_tail_v1.cu), B6a (obs_tail_static_v3.cu) and B6b
-// (obs_tail_dyn_v3.cu), for Hopper (sm_90a).
+// The observation tail shared by kernels B3 (obs_tail_dyn_v2.cu), B4
+// (obs_tail_static_v1.cu), B5 (obs_tail_v1.cu), B6a (obs_tail_static_v3.cu)
+// and B6b (obs_tail_dyn_v3.cu), for Hopper (sm_90a); B1
+// (obs_tail_static_v2.cu) and B2 (obs_tail_dynobj_v2.cu) compute the same
+// v2 tail with persistent blocks (obs_tail_bulk.cuh) from the definitions
+// here.
 //
 // The kernels run one block per env over that env's image, int32 [HP, WPC]
-// of +1-encoded token words (0 = empty). B1, B2 and B4 build it in shared
+// of +1-encoded token words (0 = empty). B4 builds it in shared
 // memory; B3 and B5 read it from device memory, built beforehand. B6a and B6b
 // read it through its row-paired halves (PairedImage below), B6a from shared
 // memory and B6b from device memory. This header holds what follows (the

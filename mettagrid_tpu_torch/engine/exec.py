@@ -100,16 +100,38 @@ class MtThread:
 
 class RankDraws:
     """The draw source of order_by=random queries outside the reference-RNG
-    step: uniform ranks from ``generator``, fresh at every evaluation. The
-    reference there draws ranks from its per-step key folded with the
-    query's salt, so that repeated evaluations of one query in one step
-    reuse them (exec.py:770-778); both deviate from the C++ engine's
-    MT19937 stream, which only the reference-RNG step reproduces."""
+    step: uniform ranks f32[E, N] drawn from ``generator`` once per query
+    per step, keyed by the query's ``rng_salt``, and reused by every
+    evaluation of that query within the step, as the reference draws them
+    from its step key folded with the salt (exec.py:770-783). Both deviate
+    from the C++ engine's MT19937 stream, which only the reference-RNG step
+    reproduces. ``start_step`` clears the ranks; its ``fed`` ranks
+    ({rng_salt: f32[E, N]}, a parity hook) take the place of the draws."""
 
-    __slots__ = ("generator",)
+    __slots__ = ("generator", "_ranks", "_fed")
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
+        self._ranks = {}
+        self._fed = None
+
+    def start_step(self, fed=None):
+        self._ranks = {}
+        self._fed = fed
+
+    def ranks(self, salt: int, E: int, N: int, device) -> torch.Tensor:
+        r = self._ranks.get(salt)
+        if r is None:
+            if self._fed is not None:
+                if salt not in self._fed:
+                    raise KeyError(f"query_ranks has no ranks for the order_by=random query of rng_salt {salt}")
+                r = self._fed[salt].to(device=device, dtype=torch.float32)
+            else:
+                r = torch.rand((E, N), generator=self.generator, device=device)
+            if tuple(r.shape) != (E, N):
+                raise ValueError(f"ranks of rng_salt {salt} have shape {tuple(r.shape)}, expected {(E, N)}")
+            self._ranks[salt] = r
+        return r
 
     def narrowed(self, gate):
         return contextlib.nullcontext(self)
@@ -473,7 +495,7 @@ def eval_filter(program, state, ctx: Ctx, f: CompiledFilter, mtd=None) -> torch.
         value = eval_value(program, state, f.value, slot, ctx, mtd)
         threshold = eval_value(program, state, f.threshold, slot, ctx, mtd)
         return value >= threshold
-    raise NotImplementedError(f"filter kind {f.kind!r} is not ported yet (ROADMAP Queue 1 item 7)")
+    raise NotImplementedError(f"filter kind {f.kind!r} is not ported yet (ROADMAP Queue 1 item 4)")
 
 
 def eval_filters(program, state, ctx: Ctx, filters, mtd=None) -> torch.Tensor:
@@ -545,10 +567,11 @@ def _apply_query_limits(program, state, q: CompiledQuery, mask: torch.Tensor, ct
     reference-RNG step) it draws a libstdc++ std::shuffle of the result
     vector from the MT19937 twin where mtd.active, then resolves max_items
     (the C++ order: the shuffle happens even uncapped, before the resize's
-    game-value read), bit for bit. With a RankDraws it keeps the results of
-    smallest rank among uniform ranks from the step's generator, a deviation
-    from the C++ stream as the reference's own outside that mode
-    (exec.py:770-778)."""
+    game-value read), bit for bit. With a RankDraws it keeps each result
+    with fewer than cap results of strictly smaller rank, among the query's
+    ranks of this step (RankDraws.ranks), so tied ranks survive together as
+    in the reference (exec.py:779-783); like the reference's own rule
+    outside that mode it deviates from the C++ stream."""
     E, N = mask.shape
     m = mask.to(_I32)
     rank = m.cumsum(dim=1, dtype=_I32) - m  # registration-order rank
@@ -568,10 +591,11 @@ def _apply_query_limits(program, state, q: CompiledQuery, mask: torch.Tensor, ct
     if q.order_random:
         if not isinstance(mtd, RankDraws):
             raise ValueError("an order_by=random query needs a draw source (MtThread or RankDraws)")
-        ranks = torch.rand((E, N), generator=mtd.generator, device=mask.device)
-        ranks = torch.where(mask, ranks, float("inf"))
-        pos = ranks.argsort(dim=1).argsort(dim=1)  # slot -> position in rank order
-        return mask & (pos < cap[:, None])
+        ranks = torch.where(mask, mtd.ranks(q.rng_salt, E, N, mask.device), float("inf"))
+        # before[e, i] = #(ranks[e] < ranks[e, i]): the left insertion point
+        # of each rank in the sorted ranks.
+        before = torch.searchsorted(ranks.sort(dim=1).values, ranks, side="left")
+        return mask & (before < cap[:, None])
     return mask & (rank < cap[:, None])
 
 
@@ -590,4 +614,4 @@ def eval_query_mask_unlimited(program, state, q: CompiledQuery, ctx: Optional[Ct
         if q.filters:
             mask = mask & eval_filters(program, state, _object_ctx(program, state, ctx), q.filters)
         return mask
-    raise NotImplementedError(f"query kind {q.kind!r} is not ported yet (ROADMAP Queue 1 item 7)")
+    raise NotImplementedError(f"query kind {q.kind!r} is not ported yet (ROADMAP Queue 1 item 4)")

@@ -10,7 +10,8 @@ here a handler runs for a whole batch at once. Mutations that can fail
 This port runs the mutation kinds of the combat, general, wall_mood and
 tithe steps (relocate, resource_delta, direct_attack, use_target,
 change_vibe); the others raise
-NotImplementedError (ROADMAP Queue 1 item 7). Every function works out of
+NotImplementedError (ROADMAP Queue 1 items 2-3; inventory stats without
+compact stat storage, item 5). Every function works out of
 place.
 """
 
@@ -120,7 +121,7 @@ def emit_inv_stats(program, state, slot, delta_rows, new_rows, mask,
     if not program.stats_compact:
         raise NotImplementedError(
             "inventory stats for configs without compact stat storage are not ported yet "
-            "(ROADMAP Queue 1 item 7)"
+            "(ROADMAP Queue 1 item 5)"
         )
     hp = program.hp_rid
     rows = delta_rows
@@ -283,13 +284,18 @@ def apply_mutation(program, state, ctx: Ctx, m, mask: torch.Tensor, mtd=None):
                 dense_identity=True, batch=ctx.inv_batch,
             )
             return state, ok
+        if m.armor_rid == m.health_rid:
+            return _direct_attack_in_order(program, state, ctx, m, valid), ok
         if ctx.actor_prefix:
             weapon = state.obj_inv[:, : ctx.actor.shape[1], m.weapon_rid]
         else:
             weapon = gather(state.obj_inv, ctx.actor)[..., m.weapon_rid]
-        # Targets route densely: batch callers guarantee the valid targets
-        # are pairwise distinct per env, so each damage value lands on its
-        # slot lane and the update runs over the full [E, N] object axis.
+        # Targets route densely, which reads every target's armor once before
+        # any hit: exact where the valid targets are pairwise distinct per env
+        # (batch callers guarantee it) or armor is not the health resource
+        # (then a hit leaves armor as it was, and the summed damage clamps as
+        # sequential hits do). Each damage value lands on its slot lane and
+        # the update runs over the full [E, N] object axis.
         N = state.obj_inv.shape[1]
         iota_n = torch.arange(N, dtype=_I32, device=mask.device)
         t_oh = valid[..., None] & (ctx.target[..., None] == iota_n)  # [E(, B), N]
@@ -320,7 +326,24 @@ def apply_mutation(program, state, ctx: Ctx, m, mask: torch.Tensor, mtd=None):
     if m.kind == "use_target":
         return apply_use_target(program, state, ctx, mask, mtd)
 
-    raise NotImplementedError(f"mutation kind {m.kind!r} is not ported yet (ROADMAP Queue 1 item 7)")
+    raise NotImplementedError(f"mutation kind {m.kind!r} is not ported yet (ROADMAP Queue 1 items 2-3)")
+
+
+def _direct_attack_in_order(program, state, ctx: Ctx, m, valid):
+    """direct_attack where armor is the health resource: one gather/scatter
+    hit per batch column, in column order, each reading the weapon and armor
+    that earlier hits left, as sequential application does (a repeated
+    target meets the armor the previous hit lowered)."""
+    E = ctx.target.shape[0]
+    actors, targets = ctx.actor.expand(ctx.target.shape).reshape(E, -1), ctx.target.reshape(E, -1)
+    valid = valid.reshape(E, -1)
+    for b in range(targets.shape[1]):
+        actor, target, v = actors[:, b], targets[:, b], valid[:, b]
+        weapon = gather(state.obj_inv, actor)[..., m.weapon_rid]
+        armor = gather(state.obj_inv, target)[..., m.armor_rid]
+        damage = (torch.div(weapon * m.damage_pct, 100, rounding_mode="floor") - armor).clamp(min=0)
+        state, _ = entity_inv_update(program, state, target, m.health_rid, -damage, v & (damage > 0), batch=ctx.inv_batch)
+    return state
 
 
 def apply_use_target(program, state, ctx: Ctx, mask: torch.Tensor, mtd=None):

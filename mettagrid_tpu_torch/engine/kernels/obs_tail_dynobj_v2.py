@@ -7,8 +7,10 @@ Replaces the TPU kernel ``obs_tail_dynobj_v2_pallas``
 the design answers that.
 
 ``obs_tail_dynobj_v2`` launches the kernel for CUDA tensors and takes the
-plain PyTorch version ``obs_tail_dynobj_v2_ref`` for CPU tensors. Both
-compute, per env e:
+plain PyTorch version ``obs_tail_dynobj_v2_ref`` for CPU tensors. The launch
+(persistent blocks, warps per block, envs whose tables are staged ahead) is
+planned from the shapes by ``tail_plan``. Both compute,
+per env e:
 
 * the env image, int32[HP, WPC], zero except that every object n adds its S
   words ``words[e, n, s]`` at ``(rext[e, n], lext[e, n] + s)``; positions
@@ -27,8 +29,15 @@ import ctypes
 
 import torch
 
-from mettagrid_tpu_torch.engine.kernels import build
-from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import MAX_SMEM, add_words, staged_smem_bytes, tail_ref
+from mettagrid_tpu_torch.engine.kernels import build, tail_plan
+from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import (
+    MAX_SMEM,
+    add_words,
+    check_bulk_rows,
+    launch,
+    staged_smem_bytes,
+    tail_ref,
+)
 
 
 def obs_tail_dynobj_v2_ref(rext, lext, words, row0, lane0, gplus, geom, HP: int, WPC: int, out_w: int, wide: bool = False):
@@ -72,39 +81,50 @@ def _check(rext, lext, words, row0, lane0, gplus, geom, HP, WPC, out_w):
 def obs_tail_dynobj_v2(rext, lext, words, row0, lane0, gplus, geom, HP: int, WPC: int, out_w: int, wide: bool = False):
     """B2 on the tensors' device: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. Returns (words int32[E, A, out_w], attempted
-    int32[E, A]). Counts kernel launches in ``obs_tail_dynobj_v2.launches``."""
+    int32[E, A]). Counts kernel launches in ``obs_tail_dynobj_v2.launches``
+    and keeps the last launch's record in ``obs_tail_dynobj_v2.last_launch``."""
     if rext.device.type == "cpu":
         return obs_tail_dynobj_v2_ref(rext, lext, words, row0, lane0, gplus, geom, HP, WPC, out_w, wide)
     if rext.device.type != "cuda":
         raise ValueError(f"obs_tail_dynobj_v2 runs on CUDA or CPU tensors, not {rext.device}")
-    _check(rext, lext, words, row0, lane0, gplus, geom, HP, WPC, out_w)
-    E, N = rext.shape
-    A = row0.shape[1]
-    S, G, K = words.shape[2], gplus.shape[2], geom.shape[0]
-    lib = _library()
-    dev = rext.device
-    out = torch.empty((E, A, out_w), dtype=torch.int32, device=dev)
-    attempted = torch.empty((E, A), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.obs_tail_dynobj_v2_launch(
-            rext.data_ptr(), lext.data_ptr(), words.data_ptr(), row0.data_ptr(), lane0.data_ptr(),
-            gplus.data_ptr(), geom.data_ptr(), out.data_ptr(), attempted.data_ptr(),
-            HP, WPC, E, N, A, S, G, K, out_w, int(bool(wide)), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"obs_tail_dynobj_v2: kernel launch failed with cudaError_t {err}")
+    out, attempted, obs_tail_dynobj_v2.last_launch = launch_plans(
+        None, rext, lext, words, row0, lane0, gplus, geom, HP, WPC, out_w, wide
+    )
     obs_tail_dynobj_v2.launches += 1
     return out, attempted
 
 
+def launch_plans(plans, rext, lext, words, row0, lane0, gplus, geom, HP: int, WPC: int, out_w: int, wide: bool):
+    """The CUDA kernel on CUDA tensors with the best of ``plans`` (None: every
+    candidate plan of tail_plan, as the wrapper launches it; one plan to time
+    it alone, tools/tail_sweep.py). Returns (words, attempted, the launch's
+    record); counts no launch."""
+    _check(rext, lext, words, row0, lane0, gplus, geom, HP, WPC, out_w)
+    E, N = rext.shape
+    A = row0.shape[1]
+    S, G, K = words.shape[2], gplus.shape[2], geom.shape[0]
+    check_bulk_rows("obs_tail_dynobj_v2", out_w, G)
+    if plans is None:
+        plans = tail_plan.candidate_plans("B2", HP, WPC, A, G, K, S, out_w, N=N)
+    dev = rext.device
+    out = torch.empty((E, A, out_w), dtype=torch.int32, device=dev)
+    attempted = torch.empty((E, A), dtype=torch.int32, device=dev)
+    record = launch(_library(), "obs_tail_dynobj_v2", plans, E, dev, (
+        rext.data_ptr(), lext.data_ptr(), words.data_ptr(), row0.data_ptr(), lane0.data_ptr(),
+        gplus.data_ptr(), geom.data_ptr(), out.data_ptr(), attempted.data_ptr(),
+        HP, WPC, E, N, A, S, G, K, out_w, int(bool(wide)),
+    ))
+    return out, attempted, record
+
+
 obs_tail_dynobj_v2.launches = 0
+obs_tail_dynobj_v2.last_launch = None
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load("obs_tail_dynobj_v2")
     fn = lib.obs_tail_dynobj_v2_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

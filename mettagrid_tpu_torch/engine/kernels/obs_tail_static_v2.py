@@ -6,8 +6,9 @@ Replaces the TPU kernel ``obs_tail_static_v2_pallas``
 the design answers that.
 
 ``obs_tail_static_v2`` launches the kernel for CUDA tensors and takes the
-plain PyTorch version ``obs_tail_static_v2_ref`` for CPU tensors. Both
-compute, per env e and agent a:
+plain PyTorch version ``obs_tail_static_v2_ref`` for CPU tensors. The launch
+(persistent blocks, warps per block, envs staged ahead) is planned from the
+shapes by ``tail_plan``. Both compute, per env e and agent a:
 
 * the env image: ``static_imgp[map_idx[e]]`` (+1-encoded token words, 0 =
   empty) plus every agent's S words added at ``(rext, lext + s)``;
@@ -30,12 +31,11 @@ import ctypes
 
 import torch
 
-from mettagrid_tpu_torch.engine.kernels import build
+from mettagrid_tpu_torch.engine.kernels import build, tail_plan
+from mettagrid_tpu_torch.engine.kernels.tail_plan import MAX_SMEM
 from mettagrid_tpu_torch.engine.program import GLOBAL_LOCATION
 
 EMPTY_WORD = 0xFFFFFF
-# Shared memory one block may use on Hopper (bytes).
-MAX_SMEM = 232448
 
 
 def staged_smem_bytes(HP: int, WPC: int, K: int, S: int) -> int:
@@ -161,43 +161,87 @@ def check_static_inputs(name, static_imgp, map_idx, row0, lane0, rext, lext, wor
         raise ValueError(f"{name}: image + tables need {smem} bytes of shared memory (> {MAX_SMEM})")
 
 
+def check_bulk_rows(name, out_w: int, G: int):
+    """The persistent tails' own limits (B1, B2): rows stored by bulk copy
+    are whole 16-byte units, and every global word lies in the first round
+    of candidates."""
+    if out_w % 4:
+        raise ValueError(f"{name}: out_w = {out_w} is not a multiple of 4 (rows are stored in 16-byte units)")
+    if G > 32:
+        raise ValueError(f"{name}: {G} global words (at most 32)")
+
+
+def launch(lib, name: str, plans, E: int, device, args) -> dict:
+    """Launches kernel ``name`` of ``lib`` with the plan of ``plans``
+    (tail_plan.candidate_plans) that leaves the most warps resident per SM
+    on ``device``, on a persistent grid for E envs, after ``args``
+    (pointers and shapes); raises on a launch error. Returns the launch's
+    record: grid, warps, stages, rounds, shared bytes, blocks per SM and
+    registers."""
+    occ = {p: tail_plan.occupancy(lib, name, p, device) for p in plans}
+    plan = tail_plan.choose(plans, lambda p: occ[p][0])
+    blocks_per_sm, regs, sms = occ[plan]
+    grid = tail_plan.persistent_grid(E, sms, blocks_per_sm)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"{name}_launch")(
+            *args, plan.rounds, plan.stages, plan.warps, grid, plan.smem_bytes, stream
+        )
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")
+    return dict(grid=grid, warps=plan.warps, stages=plan.stages, rounds=plan.rounds, smem_bytes=plan.smem_bytes,
+                blocks_per_sm=blocks_per_sm, registers=regs, sms=sms)
+
+
 def obs_tail_static_v2(static_imgp, map_idx, row0, lane0, rext, lext, words, gplus, geom, out_w: int, wide: bool = False):
     """B1 on the tensors' device: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. Returns (words int32[E, A, out_w], attempted
-    int32[E, A]). Counts kernel launches in ``obs_tail_static_v2.launches``."""
+    int32[E, A]). Counts kernel launches in ``obs_tail_static_v2.launches``
+    and keeps the last launch's record (``launch``) in
+    ``obs_tail_static_v2.last_launch``."""
     if static_imgp.device.type == "cpu":
         return obs_tail_static_v2_ref(static_imgp, map_idx, row0, lane0, rext, lext, words, gplus, geom, out_w, wide)
     if static_imgp.device.type != "cuda":
         raise ValueError(f"obs_tail_static_v2 runs on CUDA or CPU tensors, not {static_imgp.device}")
-    check_static_inputs("obs_tail_static_v2", static_imgp, map_idx, row0, lane0, rext, lext, words, gplus, geom, out_w)
-    P, HP, WPC = static_imgp.shape
-    E, A = row0.shape
-    S, G, K = words.shape[2], gplus.shape[2], geom.shape[0]
-    lib = _library()
-    dev = static_imgp.device
-    out = torch.empty((E, A, out_w), dtype=torch.int32, device=dev)
-    attempted = torch.empty((E, A), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.obs_tail_static_v2_launch(
-            static_imgp.data_ptr(), map_idx.data_ptr(), row0.data_ptr(), lane0.data_ptr(),
-            rext.data_ptr(), lext.data_ptr(), words.data_ptr(), gplus.data_ptr(), geom.data_ptr(),
-            out.data_ptr(), attempted.data_ptr(),
-            P, HP, WPC, E, A, S, G, K, out_w, int(bool(wide)), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"obs_tail_static_v2: kernel launch failed with cudaError_t {err}")
+    out, attempted, obs_tail_static_v2.last_launch = launch_plans(
+        None, static_imgp, map_idx, row0, lane0, rext, lext, words, gplus, geom, out_w, wide
+    )
     obs_tail_static_v2.launches += 1
     return out, attempted
 
 
+def launch_plans(plans, static_imgp, map_idx, row0, lane0, rext, lext, words, gplus, geom, out_w: int, wide: bool):
+    """The CUDA kernel on CUDA tensors with the best of ``plans`` (None: every
+    candidate plan of tail_plan, as the wrapper launches it; one plan to time
+    it alone, tools/tail_sweep.py). Returns (words, attempted, the launch's
+    record); counts no launch."""
+    check_static_inputs("obs_tail_static_v2", static_imgp, map_idx, row0, lane0, rext, lext, words, gplus, geom, out_w)
+    P, HP, WPC = static_imgp.shape
+    E, A = row0.shape
+    S, G, K = words.shape[2], gplus.shape[2], geom.shape[0]
+    check_bulk_rows("obs_tail_static_v2", out_w, G)
+    if plans is None:
+        plans = tail_plan.candidate_plans("B1", HP, WPC, A, G, K, S, out_w)
+    dev = static_imgp.device
+    out = torch.empty((E, A, out_w), dtype=torch.int32, device=dev)
+    attempted = torch.empty((E, A), dtype=torch.int32, device=dev)
+    record = launch(_library(), "obs_tail_static_v2", plans, E, dev, (
+        static_imgp.data_ptr(), map_idx.data_ptr(), row0.data_ptr(), lane0.data_ptr(),
+        rext.data_ptr(), lext.data_ptr(), words.data_ptr(), gplus.data_ptr(), geom.data_ptr(),
+        out.data_ptr(), attempted.data_ptr(),
+        P, HP, WPC, E, A, S, G, K, out_w, int(bool(wide)),
+    ))
+    return out, attempted, record
+
+
 obs_tail_static_v2.launches = 0
+obs_tail_static_v2.last_launch = None
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load("obs_tail_static_v2")
     fn = lib.obs_tail_static_v2_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

@@ -764,4 +764,7 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
     obs_fn.tail = tail
     obs_fn.tail_inputs = tail_inputs
     obs_fn.route = route
+    # The shapes a tail kernel is planned from (the padded image's, the
+    # global lanes, the window cells and the token slots per cell).
+    obs_fn.tail_shapes = dict(HP=HP_f, WPC=WPC_f, G=GP, K=K, S=S)
     return obs_fn

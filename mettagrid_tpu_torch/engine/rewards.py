@@ -30,10 +30,11 @@ def make_reward_phase(program: EngineProgram):
                 prev = state.reward_prev[:, :, j]
                 delta = val if entry.accumulate else val - prev
                 total = total + torch.where(cfg_mask, delta, 0.0)
-                # Writes the whole column from the step-start value, as the
-                # reference does (a later config's entry j resets an earlier
-                # config's update of column j; ROADMAP Queue 3).
-                new_prev[:, :, j] = torch.where(cfg_mask, val, prev)
+                # Each config updates only its own agents' column j, so
+                # configs that share entry j keep each other's updates (the
+                # reference rewrites the whole column from the step-start
+                # value, and a later config's entry j undoes an earlier one's).
+                new_prev[:, :, j] = torch.where(cfg_mask, val, new_prev[:, :, j])
 
         rewards = state.rewards + total
         return state._replace(

@@ -141,18 +141,18 @@ def _unported(program: EngineProgram, reference_rng: bool = False):
     if any(filter_consumes(f, program) for f in dense) or any(
         mutation_consumes(m, program) for spec in program.aoe_specs for m in spec.mutations
     ) or any(handler_consumes(h, program) for h in dense_handlers):
-        missing.append("order_by=random queries in AOE or territory handlers (ROADMAP Queue 1 item 7)")
+        missing.append("order_by=random queries in AOE or territory handlers (ROADMAP Queue 1 item 4)")
     for ev in program.events:
         q = ev.target_query
         if q.kind != "tag":
-            missing.append("event target queries other than tag queries (ROADMAP Queue 1 item 7)")
+            missing.append("event target queries other than tag queries (ROADMAP Queue 1 item 4)")
         filters.update(f.kind for f in q.filters)
     if filters - PORTED_FILTERS:
-        missing.append(f"filter kinds {sorted(filters - PORTED_FILTERS)} (ROADMAP Queue 1 item 7)")
+        missing.append(f"filter kinds {sorted(filters - PORTED_FILTERS)} (ROADMAP Queue 1 item 4)")
     if mutations - PORTED_MUTATIONS:
-        missing.append(f"mutation kinds {sorted(mutations - PORTED_MUTATIONS)} (ROADMAP Queue 1 item 7)")
+        missing.append(f"mutation kinds {sorted(mutations - PORTED_MUTATIONS)} (ROADMAP Queue 1 items 2-3)")
     if program.materialized:
-        missing.append("materialized queries (ROADMAP Queue 1 item 7)")
+        missing.append("materialized queries (ROADMAP Queue 1 item 3)")
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
     problems = reference_rng_unsupported(program) if reference_rng else []
@@ -532,7 +532,8 @@ def make_step(
     obs_tail: str = "auto",
 ):
     """Returns step(state, actions, vibe_actions, perm=None, obs_buf=None,
-    reset_maps=None, event_ranks=None) -> (state, StepOutputs).
+    reset_maps=None, event_ranks=None, query_ranks=None) -> (state,
+    StepOutputs).
 
     actions/vibe_actions: int32[E, A] indices into the flattened action space.
 
@@ -548,7 +549,7 @@ def make_step(
     events' shuffles and the order_by=random picks as the C++ engine does;
     the auto-reset map picks still come from ``generator`` or reset_maps,
     as the reference draws them from its own keys. It excludes
-    external_perm and event_ranks.
+    external_perm, event_ranks and query_ranks.
 
     action_mode: "auto" takes the wave phase where it is provably
     sequential-equivalent (actions_fast.fast_mode_ok) and no action handler
@@ -576,6 +577,12 @@ def make_step(
     (events.make_event_phase; rows = n_events * (fallback depth + 1)), in
     place of the draw from ``generator`` (the parity tests feed the
     reference engine's draw).
+
+    query_ranks: optional {rng_salt: f32[E, N]} with values in [0, 1), the
+    ranks by which each order_by=random query (ir.CompiledQuery.rng_salt)
+    picks its results this step, in place of the one draw per query and step
+    from ``generator`` (exec.RankDraws; the parity tests feed the reference
+    engine's draw).
 
     ``device`` defaults to CUDA and raises when there is none; pass
     device="cpu" for the plain path."""
@@ -678,10 +685,14 @@ def make_step(
             upd[f] = mrg(getattr(fresh, f), getattr(state, f))
         return state._replace(**upd)
 
-    def step(state: EnvState, actions, vibe_actions, perm_in=None, obs_buf=None, reset_maps=None, event_ranks=None):
+    def step(state: EnvState, actions, vibe_actions, perm_in=None, obs_buf=None, reset_maps=None, event_ranks=None,
+             query_ranks=None):
         E = actions.shape[0]
         if reference_rng and event_ranks is not None:
             raise ValueError("reference_rng draws the events' shuffles from the MT19937 twin; pass no event_ranks")
+        if reference_rng and query_ranks is not None:
+            raise ValueError("reference_rng draws the queries' shuffles from the MT19937 twin; pass no query_ranks")
+        draws.start_step(query_ranks)
         if auto_reset:
             with record_function("step.auto_reset"):
                 state = auto_reset_merge(state, reset_maps)

@@ -1,0 +1,94 @@
+"""Kernels B1 and B2 under every launch plan, on a bench variant's live state.
+
+    python -m mettagrid_tpu_torch.tools.tail_sweep [--variant V ...] [--out PATH]
+
+For each variant (flagship and combat take B1, general takes B2; the
+default is all three) steps the main path (4096 envs x 24 agents, a pool of
+64 maps) for 16 steps, then launches its tail kernel under each plan of
+warps per block (4, 8, 12, 16) and stages (1, 2) that fits one block's
+shared memory (engine/kernels/tail_plan.py), holds each launch's words and
+counts equal to the plain version, and times it by CUDA events (the mean
+of 100 launches after one warm-up). Prints one JSON line per plan, marks
+the plan the wrapper picks, and writes the list to --out. Needs a CUDA
+device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+import torch
+
+from mettagrid_tpu_torch.engine.kernels import obs_tail_dynobj_v2, obs_tail_static_v2, tail_plan
+from mettagrid_tpu_torch.tools.bench_run import BenchRun
+
+WARPS = (4, 8, 12, 16)
+STAGES = (1, 2)
+
+
+def _time_ms(fn, reps: int = 100) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sweep(variant: str) -> list:
+    bench = BenchRun(variant, seed=7)
+    state, _ = bench.run(*bench.reset(0), 16)
+    fn = bench.step.obs_fn
+    args = fn.tail_inputs(state)
+    call = dict(out_w=fn.out_w, wide=fn.wide)
+    if fn.route == "B1":
+        kind, mod, plain, N = "B1", obs_tail_static_v2, obs_tail_static_v2.obs_tail_static_v2_ref, 0
+    elif fn.route == "B2":
+        kind, mod, plain = "B2", obs_tail_dynobj_v2, obs_tail_dynobj_v2.obs_tail_dynobj_v2_ref
+        N = args["rext"].shape[1]
+    else:
+        raise SystemExit(f"{variant} takes {fn.route}, not B1 or B2")
+    ref_words, ref_att = plain(**args, **call)
+    fn.tail(**args, **call)
+    chosen = fn.tail.last_launch
+    sh, A = fn.tail_shapes, bench.program.num_agents
+    rounds = tail_plan.rounds_for(sh["G"], sh["K"], sh["S"])
+    rows = []
+    for warps in WARPS:
+        for stages in STAGES:
+            smem = tail_plan.smem_bytes(kind, stages, warps, sh["HP"], sh["WPC"], fn.out_w, A, sh["G"], sh["S"], N)
+            if smem > tail_plan.MAX_SMEM:
+                continue
+            plan = tail_plan.TailPlan(rounds, stages, warps, smem)
+            words, att, record = mod.launch_plans([plan], **args, **call)
+            torch.cuda.synchronize()
+            assert torch.equal(words, ref_words) and torch.equal(att, ref_att), f"{variant}: {plan} differs"
+            ms = _time_ms(lambda: mod.launch_plans([plan], **args, **call))
+            row = dict(variant=variant, kernel=kind, ms=ms, chosen=(warps, stages) == (chosen["warps"], chosen["stages"]),
+                       **record)
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--variant", nargs="+", default=["flagship", "combat", "general"])
+    ap.add_argument("--out", type=Path, default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("tail_sweep needs a CUDA device")
+    rows = [row for v in args.variant for row in sweep(v)]
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(rows, indent=1))
+    return rows
+
+
+if __name__ == "__main__":
+    main()

@@ -179,7 +179,7 @@ def test_unported_constructs_raise():
     b = cfg.game.map_builder.create()
     b.config.seed = 1
     init = build_env_init(program, [b.build_for_num_agents(4)])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match=r"mutation kinds \['swap'\] \(ROADMAP Queue 1 items 2-3\)"):
         make_step(program, init, device="cpu")
 
 

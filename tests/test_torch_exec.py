@@ -146,21 +146,52 @@ def test_tag_query_matches_jax(max_items):
 @pytest.mark.parametrize("max_items", [1, 3])
 def test_random_order_query_keeps_smallest_ranks(max_items):
     """Outside the reference-RNG step an order_by=random query keeps, per
-    env, the max_items candidates of smallest rank among uniform ranks drawn
-    from the step's generator (exec.RankDraws); the reference draws its own
-    ranks there, so the picks are held to that rule, not to JAX's."""
+    env, each candidate with fewer than max_items candidates of strictly
+    smaller rank, among uniform ranks drawn once per query and step from the
+    step's generator (exec.RankDraws): the reference's rule
+    (exec.py:779-783). A second evaluation in the step reuses the ranks; the
+    next step draws anew."""
     _, tp, _, ts = _case()
     wall = tp.tag_names.index("type:wall")
-    q = CompiledQuery(kind="tag", tag_id=wall, max_items=max_items, order_random=True)
+    q = CompiledQuery(kind="tag", tag_id=wall, max_items=max_items, order_random=True, rng_salt=1)
     full = texec.eval_query_mask(tp, ts, CompiledQuery(kind="tag", tag_id=wall)).numpy()
-    got = texec.eval_query_mask(tp, ts, q, mtd=texec.RankDraws(torch.Generator().manual_seed(5))).numpy()
+    draws = texec.RankDraws(torch.Generator().manual_seed(5))
+    draws.start_step()
+    got = texec.eval_query_mask(tp, ts, q, mtd=draws).numpy()
     ranks = torch.rand(full.shape, generator=torch.Generator().manual_seed(5)).numpy()
     ranks = np.where(full, ranks, np.inf)
-    want = np.zeros_like(full)
-    np.put_along_axis(want, np.argsort(ranks, axis=1)[:, :max_items], True, axis=1)
-    want &= full
+    before = (ranks[:, None, :] < ranks[:, :, None]).sum(axis=2)
+    want = full & (before < max_items)
     np.testing.assert_array_equal(got, want)
     assert (got.sum(axis=1) == np.minimum(full.sum(axis=1), max_items)).all()
+    np.testing.assert_array_equal(texec.eval_query_mask(tp, ts, q, mtd=draws).numpy(), got)
+    draws.start_step()
+    assert not np.array_equal(texec.eval_query_mask(tp, ts, q, mtd=draws).numpy(), got)
+
+
+def test_random_order_query_keeps_tied_ranks():
+    """Candidates whose ranks tie all survive when fewer than max_items
+    candidates rank strictly below them, as the reference counts them
+    (exec.py:782-783): fed ranks with every candidate of env 0 tied, and in
+    env 1 one smallest rank followed by a tie of two, keep all of env 0 and
+    all three of env 1 under max_items 2; a distinct position per candidate
+    would keep two."""
+    _, tp, _, ts = _case()
+    wall = tp.tag_names.index("type:wall")
+    q = CompiledQuery(kind="tag", tag_id=wall, max_items=2, order_random=True, rng_salt=4)
+    full = texec.eval_query_mask(tp, ts, CompiledQuery(kind="tag", tag_id=wall)).numpy()
+    assert (full[:2].sum(axis=1) >= 3).all()
+    ranks = np.full(full.shape, 0.9, np.float32)
+    ranks[0] = 0.5
+    c1 = np.flatnonzero(full[1])
+    ranks[1, c1[:3]] = [0.25, 0.5, 0.5]
+    draws = texec.RankDraws(torch.Generator().manual_seed(0))
+    draws.start_step({4: torch.from_numpy(ranks)})
+    got = texec.eval_query_mask(tp, ts, q, mtd=draws).numpy()
+    np.testing.assert_array_equal(got[0], full[0])
+    want1 = np.zeros_like(full[1])
+    want1[c1[:3]] = True
+    np.testing.assert_array_equal(got[1], want1)
 
 
 def test_stat_writers_match_jax():
