@@ -237,3 +237,5 @@ def test_reference_rng_refuses_fed_draws():
     acts = torch.zeros((8, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="event_ranks"):
         step(state, acts, acts, event_ranks=torch.zeros((8, 1, state.obj_type.shape[1])))
+    with pytest.raises(ValueError, match="query_ranks"):
+        step(state, acts, acts, query_ranks={1: torch.zeros((8, state.obj_type.shape[1]))})
