@@ -92,7 +92,17 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
     an out_w below the valid count, and an image (B1) or object tables (B2)
     that fit one stage but not two, so both the staged-ahead and the
     single-stage modes run; prints each launch's grid, warps per block,
-    stages, shared memory, registers and blocks per SM.
+    stages, shared memory, registers and blocks per SM;
+22. B5 and B6b against their plain versions on seeded synthetic inputs,
+    word for word, in every mode (B5: its image staged with two stages and
+    with one, and read from device memory; B6b: its halves read from device
+    memory, and staged with one stage and with two): the wrapper's own plan
+    and the plan of every other mode that fits, at 1, 7, 133 and 4099 envs,
+    with windows crossing the image edge, an out_w below the valid count
+    (B5's not a multiple of 4), globals absent a third of the time (B5),
+    windows starting on even and on odd image rows over halves that are not
+    any image's pairing (B6b), and a B5 image too large to stage; prints
+    each launch's plan and its time by CUDA events.
 
 Every phase asserts. The line before the last is the kernels' JSON record;
 the last line is {"ok": true, "device": {...}}. With no CUDA device, or
@@ -242,10 +252,10 @@ def _tail_record(torch, obs_fn, state):
 
 
 def _plan_note(kernel) -> str:
-    """The launch plan of a persistent tail's last launch (B1, B2)."""
+    """The launch plan of a persistent tail's last launch (B1, B2, B5, B6b)."""
     p = kernel.last_launch
-    return (f"grid {p['grid']} ({p['blocks_per_sm']} blocks per SM), {p['warps']} warps, {p['stages']} stage(s), "
-            f"{p['smem_bytes']} bytes of shared memory, {p['registers']} registers")
+    return (f"grid {p['grid']} ({p['blocks_per_sm']} blocks per SM), {p['warps']} warps, {p['mode']} mode, "
+            f"{p['stages']} stage(s), {p['smem_bytes']} bytes of shared memory, {p['registers']} registers")
 
 
 def _record(name: str, err: int, kernel_ms: float, plain_ms: float, bytes_moved: int, ops: int) -> dict:
@@ -482,7 +492,8 @@ def _new_route(torch, card: str, phase: int, variant: str, kernel, check=None):
     del state, out
     print(f"[{phase}] {label} equal to its plain version on the {variant} state after 12 steps "
           f"({off_spawn:.2f} of agents off their spawn cell): kernel {record['ms']:.4f} ms, "
-          f"plain {record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms ({record['bound_by']})", flush=True)
+          f"plain {record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms ({record['bound_by']})"
+          f"{f'; {_plan_note(kernel)}' if getattr(kernel, 'last_launch', None) else ''}", flush=True)
     n_timed = 32
     torch.cuda.reset_peak_memory_stats()
     state, out, dt, launches = _timed_path(torch, bench, n_timed, kernel)
@@ -697,6 +708,98 @@ def _synthetic_tails(torch):
     assert modes == {("B1", True), ("B1", False), ("B2", True), ("B2", False)}, f"stage modes run: {modes}"
 
 
+def _synthetic_window_args(torch, kind: str, E: int, HP: int, WPC: int, S: int, G: int, seed: int, A: int = 24,
+                           OH: int = 11, OW: int = 11, fill: float = 0.4):
+    """Seeded inputs of B5 ("B5": per-env images int32[E, HP, WPC], globals
+    absent a third of the time) or B6b ("B6b": two halves int32[E, HP, WPC]
+    filled independently, so no image's pairing, read with windows starting
+    on even and odd image rows) at E envs: agents' windows mostly inside the
+    image and a fifth of them anywhere, crossing its edges. Returns (args,
+    windows crossing an edge, a note for the printout)."""
+    rng = np.random.default_rng(seed)
+
+    def words(shape, p):
+        return np.where(rng.random(shape) < p, rng.integers(1, 1 << 16, shape), 0).astype(np.int32)
+
+    # B6b's window from image row r reads half rows (r & 1) * HP2 + (r >> 1)
+    # + (u >> 1): inside both halves of HP = 2 * HP2 rows for 0 <= r <= HP - OH.
+    r0 = rng.integers(0, HP - OH + 1, (E, A))
+    l0 = rng.integers(0, (WPC - OW * S) // S + 1, (E, A)) * S
+    anywhere = rng.random((E, A)) < 0.2
+    r0 = np.where(anywhere, rng.integers(-OH + 1, HP, (E, A)), r0)
+    l0 = np.where(anywhere, rng.integers(-OW + 1, WPC // S, (E, A)) * S, l0)
+    lanes_out = (l0 < 0) | (l0 + OW * S > WPC)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).cuda()  # noqa: E731
+    args = dict(row0=t(r0), lane0=t(l0), geom=_window_geom(torch, OH, OW), S=S)
+    if kind == "B5":
+        crossing = int(((r0 < 0) | (r0 + OH > HP) | lanes_out).sum())
+        front = words((E, A, G), 2 / 3)
+        args.update(imgp=t(words((E, HP, WPC), fill)), gwords=t(front))
+        note = f"{int((front == 0).sum())} absent globals"
+    else:
+        HP2 = HP // 2
+        base = (r0 & 1) * HP2 + (r0 >> 1)
+        crossing = int(((base < 0) | (base + (OH - 1) // 2 >= HP) | lanes_out).sum())
+        args.update(imgp_l=t(words((E, HP, WPC), fill)), imgp_r=t(words((E, HP, WPC), fill)),
+                    gplus=t(words((E, A, G), 0.9)))
+        odd = int((r0 & 1).sum())
+        note = f"windows on {r0.size - odd} even and {odd} odd image rows"
+        assert E < 7 or 0 < odd < r0.size, "windows start on one parity only"
+    return args, crossing, note
+
+
+def _per_env_tails(torch):
+    """Phase 22: B5 and B6b against their plain versions on seeded synthetic
+    inputs, in every mode (the wrapper's plan, then the plan of each other
+    stage count that fits, launched alone), at E below, near and above the
+    persistent grid, windows crossing the image edge, dropped ranks (B5 at
+    an out_w that is not a multiple of 4), absent globals (B5), both window
+    parities over halves that no image pairs (B6b), and a B5 image too large
+    to stage. Prints each launch's plan and its time (CUDA events, the mean
+    of 20 launches after one warm-up)."""
+    from mettagrid_tpu_torch.engine.kernels import obs_tail_dyn_v3, obs_tail_v1, tail_plan
+
+    mods = {"B5": obs_tail_v1, "B6b": obs_tail_dyn_v3}
+    # (kind, E, rows of the image or of each half, WPC, S, G, out_w)
+    cases = [("B5", E, 48, 256, 6, 5, 512) for E in (1, 7, 133, 4099)]
+    cases += [("B5", 133, 48, 256, 6, 5, 133), ("B5", 133, 144, 512, 6, 5, 512)]
+    cases += [("B6b", E, 64, 256, 4, 3, 384) for E in (1, 7, 133, 4099)]
+    cases += [("B6b", 133, 64, 256, 4, 3, 128), ("B6b", 4099, 16, 128, 4, 3, 256)]
+    ran = set()
+    for i, (kind, E, HP, WPC, S, G, out_w) in enumerate(cases):
+        mod = mods[kind]
+        name = mod.__name__.rsplit(".", 1)[1]
+        kernel, plain = getattr(mod, name), getattr(mod, f"{name}_ref")
+        args, crossing, note = _synthetic_window_args(torch, kind, E, HP, WPC, S, G, seed=2200 + i)
+        A, K = args["row0"].shape[1], args["geom"].shape[0]
+        ref_w, ref_a = plain(**args, out_w=out_w)
+        got_w, got_a = kernel(**args, out_w=out_w)
+        records = [("wrapper", got_w, got_a, kernel.last_launch, _time_ms(torch, lambda: kernel(**args, out_w=out_w), 20))]
+        for stages in (2, 1, 0):
+            plan = tail_plan.plan_for(kind, stages, HP, WPC, A, G, K, S, out_w)
+            if plan is not None and stages != kernel.last_launch["stages"]:
+                ms = _time_ms(torch, lambda: mod.launch_plans([plan], **args, out_w=out_w), 20)
+                records.append(("forced", *mod.launch_plans([plan], **args, out_w=out_w), ms))
+        torch.cuda.synchronize()
+        dropped = int((ref_a - out_w).clamp(min=0).sum())
+        for how, words_, att, plan, ms in records:
+            assert torch.equal(words_, ref_w), f"{kind} words differ from the plain version (case {i}, {how} {plan})"
+            assert torch.equal(att, ref_a), f"{kind} attempted counts differ from the plain version (case {i}, {how})"
+            ran.add((kind, plan["stages"]))
+            print(f"[22] {kind} equal to its plain version: E {E}, {'image' if kind == 'B5' else 'halves'} {HP}x{WPC}, "
+                  f"S {S}, G {G}, out_w {out_w}; {crossing} windows cross the image edge, {dropped} ranks dropped, "
+                  f"{note}; {how} plan: {plan['mode']} mode, {plan['stages']} stage(s), grid {plan['grid']} "
+                  f"({plan['blocks_per_sm']} blocks per SM on {plan['sms']} SMs), {plan['warps']} warps per block, "
+                  f"{plan['smem_bytes']} bytes of shared memory, {plan['registers']} registers, "
+                  f"{plan['rounds']} rounds; {ms:.4f} ms", flush=True)
+        assert crossing > 0 or E < 7, "no window crosses the image edge"
+        if out_w < 256:
+            assert dropped > 0, "no rank was dropped"
+        del args, records, got_w, got_a, ref_w, ref_a
+    want = {(k, st) for k in ("B5", "B6b") for st in (0, 1, 2)}
+    assert ran == want, f"modes run: {sorted(ran)}"
+
+
 def main() -> int:
     import torch
 
@@ -774,7 +877,8 @@ def main() -> int:
               "with auto-resets (every output, every state field but rng, mt included)", flush=True)
 
     _synthetic_tails(torch)
-    print(f"[21] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    _per_env_tails(torch)
+    print(f"[22] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6a, b6b, b7, b8]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,16 +1,15 @@
 // The observation tail shared by kernels B3 (obs_tail_dyn_v2.cu), B4
-// (obs_tail_static_v1.cu), B5 (obs_tail_v1.cu), B6a (obs_tail_static_v3.cu)
-// and B6b (obs_tail_dyn_v3.cu), for Hopper (sm_90a); B1
-// (obs_tail_static_v2.cu) and B2 (obs_tail_dynobj_v2.cu) compute the same
-// v2 tail with persistent blocks (obs_tail_bulk.cuh) from the definitions
-// here.
+// (obs_tail_static_v1.cu) and B6a (obs_tail_static_v3.cu), for Hopper
+// (sm_90a), which run it one block per env; B1 (obs_tail_static_v2.cu), B2
+// (obs_tail_dynobj_v2.cu), B5 (obs_tail_v1.cu) and B6b (obs_tail_dyn_v3.cu)
+// compute the same tails with persistent blocks (obs_tail_bulk.cuh) from
+// the definitions here.
 //
-// The kernels run one block per env over that env's image, int32 [HP, WPC]
-// of +1-encoded token words (0 = empty). B4 builds it in shared
-// memory; B3 and B5 read it from device memory, built beforehand. B6a and B6b
-// read it through its row-paired halves (PairedImage below), B6a from shared
-// memory and B6b from device memory. This header holds what follows (the
-// image may lie in either memory):
+// The one-block-per-env kernels run over that env's image, int32 [HP, WPC]
+// of +1-encoded token words (0 = empty). B4 builds it in shared memory; B3
+// reads it from device memory, built beforehand. B6a reads it through its
+// row-paired halves (PairedImage below) from shared memory. This header
+// holds what follows (the image may lie in either memory):
 //   cells = G global words (+1-encoded, 0 = absent), then
 //           img[row0 + u_k][lane0 + v_k*S + s] for the K window cells in
 //           Manhattan order (table `geom`) and s < S;
@@ -19,11 +18,11 @@
 //   two word formats (below), the format's empty word filling the rest;
 //   attempted[e, a] = the number of valid cells, globals and dropped ones
 //   included.
-// The v2 format (B1-B3) is loc | feat << 8 | val << 16 with 0xFFFFFF for
-// empty slots: the packing (loc shifted by 15, or 14 when wide, over
-// word - 1; a loc field of 0xFF reads as empty) reproduces the reference's
-// packed compaction bit for bit. The v1 format (B4, B5) is the reference's
-// (feat << 8 | val) | loc << 16 with -1 for empty slots.
+// The v2 format (B1-B3, B6a, B6b) is loc | feat << 8 | val << 16 with
+// 0xFFFFFF for empty slots: the packing (loc shifted by 15, or 14 when
+// wide, over word - 1; a loc field of 0xFF reads as empty) reproduces the
+// reference's packed compaction bit for bit. The v1 format (B4, B5) is the
+// reference's (feat << 8 | val) | loc << 16 with -1 for empty slots.
 //
 // One warp per agent walks the candidates 32 at a time; __ballot_sync and
 // __popc give each valid lane its output rank (warp_rank, which kernel B8,

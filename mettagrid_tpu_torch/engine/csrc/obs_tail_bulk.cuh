@@ -1,24 +1,38 @@
-// The persistent-block machinery of kernels B1 (obs_tail_static_v2.cu) and
-// B2 (obs_tail_dynobj_v2.cu), for Hopper (sm_90a). They compute the v2 tail
-// of obs_tail.cuh, word for word; this header holds how:
+// The persistent-block machinery of kernels B1 (obs_tail_static_v2.cu), B2
+// (obs_tail_dynobj_v2.cu), B5 (obs_tail_v1.cu) and B6b (obs_tail_dyn_v3.cu),
+// for Hopper (sm_90a). They compute the tails of obs_tail.cuh, word for word
+// (B1, B2 and B6b the v2 words, B5 the v1 words); B3, B4 and B6a still run
+// obs_tail.cuh's one-block-per-env tail. This header holds how:
 //
 // - a candidate plan in registers (Plan): lane l owns candidates
-//   j = 32 r + l for its R rounds, each packed in one register (the byte
-//   offset of the candidate from the window's corner, the window row, the
-//   location byte, and flags for a global word or no candidate); built once
-//   per block, so no env rebuilds candidate tables, and each round is
-//   branch-free;
-// - one bounds test per agent: when the whole window lies inside the staged
-//   image the agent takes the unchecked loop (one shared load per
-//   candidate), else the checked loop of obs_tail::FlatImage;
-// - rows written by bulk store (agents_bulk): each warp front-compacts its
+//   j = 32 r + l for its R rounds, each packed in one register (the offset
+//   of the candidate from the window's corner, the window row, the location
+//   byte, and flags for a global word or no candidate); built once per
+//   block, so no env rebuilds candidate tables, and each round is
+//   branch-free. The offset follows the image's form (Form): a flat image,
+//   or row-paired halves, where window row u lies in half u & 1 at half row
+//   u >> 1;
+// - the window reads (SmemFlat, SmemPaired, DeviceFlat, DevicePaired): an
+//   image staged in shared memory or read from device memory, flat or as
+//   paired halves. One bounds test per agent: when the whole window lies
+//   inside the image the agent takes the unchecked loop (one load per
+//   candidate; from device memory a batch of rounds' loads goes out before
+//   their ballots, so they overlap), else the checked loop of
+//   obs_tail::FlatImage or obs_tail::PairedImage;
+// - rows written by bulk store (tail_row): each warp front-compacts its
 //   agent's row into one of two row buffers in shared memory, fences the
 //   generic proxy against the async proxy, and one lane stores the row to
 //   device memory with cp.async.bulk, so one agent's store overlaps the
-//   compaction of the next;
-// - the mbarrier and 1-D bulk copy (TMA) primitives with which B1 stages
-//   each env's image, and the 4-byte cp.async (stage_runs) with which both
-//   stage an env's tables ahead of its tail.
+//   compaction of the next (rows that are not whole 16-byte units are
+//   copied out by the warp instead);
+// - the env loops over per-env images (B5, B6b): staged_envs stages each
+//   env's image (one bulk copy, or one per half) onto an mbarrier and its
+//   agent tables by cp.async, the env ahead while the current one runs
+//   where two stages fit; device_envs reads the image from device memory,
+//   each warp walking its own agents with their tables loaded two agents
+//   ahead and the next agent's window rows prefetched into L2;
+// - the mbarrier and 1-D bulk copy (TMA) primitives, and the 4-byte
+//   cp.async (stage_runs) with which the kernels stage tables.
 
 #pragma once
 
@@ -33,6 +47,7 @@ namespace tail_bulk {
 
 constexpr unsigned kDead = 1u << 31;    // no candidate (j >= G + K*S)
 constexpr unsigned kGlobal = 1u << 30;  // a global word (j < G)
+constexpr unsigned kOffMask = 0x3FFFFu;  // the offset field of a plan entry
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -77,19 +92,43 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
-// One thread: copies `bytes` (a multiple of 16; both addresses 16-byte
-// aligned) from device memory to shared memory; `bar` completes its phase
-// when they have landed. The source is marked to stay in L2 (evict_last):
-// the tails read the same few pooled maps for every env.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
-  uint64_t keep;
-  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(keep));
+// L2 policies for bulk copies: keep (evict_last: the pooled maps every env
+// reads) or stream (evict_first: data read or written once).
+__device__ __forceinline__ uint64_t policy_keep() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t policy_stream() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+// One thread: arrives on `bar` and expects `bytes` more to land on it.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)), "r"(bytes)
                : "memory");
+}
+
+// One thread: copies `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from device memory to shared memory, completing on `bar` (whose
+// phase must expect them), under L2 policy `policy`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes, uint64_t* bar, uint64_t policy) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint [%0], [%1], %2, [%3], %4;"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(keep)
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
       : "memory");
+}
+
+// One thread: one bulk copy of `bytes` that alone completes `bar`'s phase.
+// The source is marked to stay in L2 (evict_last): B1 reads the same few
+// pooled maps for every env.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, uint64_t* bar) {
+  const uint64_t keep = policy_keep();
+  mbar_expect_tx(bar, bytes);
+  bulk_copy(dst, src, bytes, bar, keep);
 }
 
 // Waits until the phase of parity `parity` of `bar` has completed.
@@ -107,6 +146,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   } while (!done);
 }
 
+// One thread: asks L2 to fetch the 16-byte units that hold words [lo, hi)
+// of device memory (a hint; nothing waits for it).
+__device__ __forceinline__ void prefetch_l2(const int* lo, const int* hi) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(lo) & ~(uintptr_t)15;
+  const uintptr_t b = (reinterpret_cast<uintptr_t>(hi) + 15) & ~(uintptr_t)15;
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(a), "r"((unsigned)(b - a)) : "memory");
+}
+
 // ---- bulk stores from shared memory ----
 
 // One thread: stores `bytes` (a multiple of 16; both addresses 16-byte
@@ -114,8 +161,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
 // leave L2 first (evict_first): the rows stream out and this kernel never
 // reads them back.
 __device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
-  uint64_t stream;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(stream));
+  const uint64_t stream = policy_stream();
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;" ::"l"(dst),
                "r"(smem_addr(src)), "r"(bytes), "l"(stream)
                : "memory");
@@ -158,20 +204,31 @@ inline cudaError_t allow_smem(const void* k, int smem, int* allowed) {
 
 // ---- the candidate plan ----
 
+// How plan entries address a window from its corner: window row u, lane
+// dl lies `u * WPC + dl` words on (flat), or `(u & 1) * half + (u >> 1) *
+// WPC + dl` words on (paired: half `half` words after the left one; 0 where
+// the read picks the half itself), stored shifted left by `shift` (2: byte
+// offsets, for shared memory; 0: word offsets, for device memory).
+struct Form {
+  int WPC;
+  int paired;
+  int half;
+  int shift;
+};
+
 // Candidate j = 32 r + lane of the calling lane, for r < R: G globals, then
 // the K window cells of `geom` (rows (u, v, loc)) times S slots. An entry is
-// off4 | u << 18 | loc << 22, off4 = 4 * (u * WPC + v * S + s) the byte
-// offset of the candidate from its window's corner (below 2^18: the staged
-// image is smaller), or kGlobal | loc << 22 for a global word, or kDead
-// past the last candidate; either of the last two has off4 = 0, which reads
-// the corner harmlessly. Call with every lane of a warp.
+// off | u << 18 | loc << 22, off the candidate's offset in the plan's Form
+// (below 2^18), or kGlobal | loc << 22 for a global word, or kDead past the
+// last candidate; either of the last two has off = 0, which reads the
+// corner harmlessly. Call with every lane of a warp.
 template <int R>
 struct Plan {
   unsigned en[R];
   int win_rows;   // 1 + the largest window row u
   int win_lanes;  // 1 + the largest window lane v * S + s
 
-  __device__ void build(const int* __restrict__ geom, int G, int K, int S, int WPC) {
+  __device__ void build(const int* __restrict__ geom, int G, int K, int S, const Form f) {
     const int lane = threadIdx.x & 31;
     const int C = G + K * S;
     int max_u = 0, max_l = 0;
@@ -187,12 +244,12 @@ struct Plan {
         const int u = geom[3 * k];
         const int dl = geom[3 * k + 1] * S + (jj - k * S);
         const int loc = geom[3 * k + 2];
-        const int off = u * WPC + dl;
-        if (u < 0 || u > 15 || dl < 0 || off >= (1 << 16) || loc < 0 || loc > 0xFF) {
+        const int off = (f.paired ? (u & 1) * f.half + (u >> 1) * f.WPC : u * f.WPC) + dl;
+        if (u < 0 || u > 15 || dl < 0 || off >= (int)((kOffMask + 1) >> f.shift) || loc < 0 || loc > 0xFF) {
           printf("obs tail plan: window cell %d (u %d, lane %d, loc %d) does not pack\n", k, u, dl, loc);
           assert(false);
         }
-        e = 4u * (unsigned)off | ((unsigned)u << 18) | ((unsigned)loc << 22);
+        e = ((unsigned)off << f.shift) | ((unsigned)u << 18) | ((unsigned)loc << 22);
         max_u = max(max_u, u);
         max_l = max(max_l, dl);
       }
@@ -201,7 +258,143 @@ struct Plan {
     win_rows = (int)__reduce_max_sync(0xFFFFFFFFu, (unsigned)max_u) + 1;
     win_lanes = (int)__reduce_max_sync(0xFFFFFFFFu, (unsigned)max_l) + 1;
   }
+
+  // A flat image WPC words wide, staged in shared memory (B1, B2).
+  __device__ void build(const int* __restrict__ geom, int G, int K, int S, int WPC) {
+    build(geom, G, K, S, Form{WPC, 0, 0, 2});
+  }
 };
+
+__device__ __forceinline__ int entry_row(unsigned en) { return (int)((en >> 18) & 15u); }
+
+// ---- window reads ----
+//
+// Each read gives: kAhead (send a batch of rounds' loads before their
+// ballots), form() (the plan's Form), inside(r0, l0, rows, lanes) (the
+// whole window of a corner lies inside the image), corner(r0, l0) and
+// load(corner, entry) (the unchecked read), and checked(r0, l0, entry) (0
+// outside the image).
+
+// A flat image int32 [HP, WPC] in shared memory.
+struct SmemFlat {
+  static constexpr bool kAhead = false;
+  const int* img;
+  int HP, WPC;
+  __device__ Form form() const { return Form{WPC, 0, 0, 2}; }
+  __device__ bool inside(int r0, int l0, int rows, int lanes) const {
+    return r0 >= 0 && r0 + rows <= HP && l0 >= 0 && l0 + lanes <= WPC;
+  }
+  __device__ uint32_t corner(int r0, int l0) const { return smem_addr(img) + 4u * (unsigned)(r0 * WPC + l0); }
+  __device__ int load(uint32_t c, unsigned en) const { return lds(c + (en & kOffMask)); }
+  __device__ int checked(int r0, int l0, unsigned en) const {
+    const int u = entry_row(en);
+    return obs_tail::FlatImage{img, HP, WPC}(r0, u, l0 + (int)((en & kOffMask) >> 2) - u * WPC);
+  }
+};
+
+// Window corner of a paired read: the window starting at image row r0 reads
+// its rows from half row base = (r0 & 1) * HP2 + (r0 >> 1) (obs_tail.cuh's
+// PairedImage).
+__device__ __forceinline__ int paired_base(int r0, int HP2) { return (r0 & 1) * HP2 + (r0 >> 1); }
+
+__device__ __forceinline__ bool paired_inside(int r0, int l0, int rows, int lanes, int HP2, int WPC) {
+  const int b = paired_base(r0, HP2);
+  return b >= 0 && b + ((rows - 1) >> 1) < 2 * HP2 && l0 >= 0 && l0 + lanes <= WPC;
+}
+
+// The two paired halves, int32 [2*HP2, WPC] each, back to back in shared
+// memory from `left`: the plan's offsets carry the half.
+struct SmemPaired {
+  static constexpr bool kAhead = false;
+  const int* left;
+  int HP2, WPC;
+  __device__ int half() const { return 2 * HP2 * WPC; }
+  __device__ Form form() const { return Form{WPC, 1, half(), 2}; }
+  __device__ bool inside(int r0, int l0, int rows, int lanes) const {
+    return paired_inside(r0, l0, rows, lanes, HP2, WPC);
+  }
+  __device__ uint32_t corner(int r0, int l0) const {
+    return smem_addr(left) + 4u * (unsigned)(paired_base(r0, HP2) * WPC + l0);
+  }
+  __device__ int load(uint32_t c, unsigned en) const { return lds(c + (en & kOffMask)); }
+  __device__ int checked(int r0, int l0, unsigned en) const {
+    const int u = entry_row(en);
+    const int dl = (int)((en & kOffMask) >> 2) - (u & 1) * half() - (u >> 1) * WPC;
+    return obs_tail::PairedImage{left, left + half(), HP2, WPC}(r0, u, l0 + dl);
+  }
+};
+
+// A flat image int32 [HP, WPC] in device memory; `at(e)` is env e's of
+// images laid back to back.
+struct DeviceFlat {
+  static constexpr bool kAhead = true;
+  const int* img;
+  int HP, WPC;
+  __device__ DeviceFlat at(int e) const { return DeviceFlat{img + (size_t)e * HP * WPC, HP, WPC}; }
+  __device__ Form form() const { return Form{WPC, 0, 0, 0}; }
+  __device__ bool inside(int r0, int l0, int rows, int lanes) const {
+    return r0 >= 0 && r0 + rows <= HP && l0 >= 0 && l0 + lanes <= WPC;
+  }
+  __device__ const int* corner(int r0, int l0) const { return img + r0 * WPC + l0; }
+  __device__ int load(const int* c, unsigned en) const { return __ldg(c + (en & kOffMask)); }
+  __device__ int checked(int r0, int l0, unsigned en) const {
+    const int u = entry_row(en);
+    const int r = r0 + u;
+    const int l = l0 + (int)(en & kOffMask) - u * WPC;
+    return (r >= 0 && r < HP && l >= 0 && l < WPC) ? __ldg(img + r * WPC + l) : 0;
+  }
+  // Lane i < rows: window row i of the corner (r0, l0) into L2.
+  __device__ void prefetch(int r0, int l0, int rows, int lanes) const {
+    const int i = threadIdx.x & 31;
+    const int r = r0 + i;
+    const int lo = max(l0, 0), hi = min(l0 + lanes, WPC);
+    if (i < rows && r >= 0 && r < HP && lo < hi) prefetch_l2(img + r * WPC + lo, img + r * WPC + hi);
+  }
+};
+
+// The two paired halves, int32 [2*HP2, WPC] each, in device memory; the
+// read picks the half by the entry's window row. `at(e)` is env e's.
+struct DevicePaired {
+  static constexpr bool kAhead = true;
+  const int* left;
+  const int* right;
+  int HP2, WPC;
+  struct Corner {
+    const int* l;
+    const int* r;
+  };
+  __device__ DevicePaired at(int e) const {
+    const size_t o = (size_t)e * 2 * HP2 * WPC;
+    return DevicePaired{left + o, right + o, HP2, WPC};
+  }
+  __device__ Form form() const { return Form{WPC, 1, 0, 0}; }
+  __device__ bool inside(int r0, int l0, int rows, int lanes) const {
+    return paired_inside(r0, l0, rows, lanes, HP2, WPC);
+  }
+  __device__ Corner corner(int r0, int l0) const {
+    const int o = paired_base(r0, HP2) * WPC + l0;
+    return Corner{left + o, right + o};
+  }
+  __device__ int load(const Corner& c, unsigned en) const {
+    return __ldg(((en >> 18) & 1u ? c.r : c.l) + (en & kOffMask));
+  }
+  __device__ int checked(int r0, int l0, unsigned en) const {
+    const int u = entry_row(en);
+    const int row = paired_base(r0, HP2) + (u >> 1);
+    const int l = l0 + (int)(en & kOffMask) - (u >> 1) * WPC;
+    const int* half = (u & 1) ? right : left;
+    return (row >= 0 && row < 2 * HP2 && l >= 0 && l < WPC) ? __ldg(half + row * WPC + l) : 0;
+  }
+  __device__ void prefetch(int r0, int l0, int rows, int lanes) const {
+    const int u = threadIdx.x & 31;
+    const int row = paired_base(r0, HP2) + (u >> 1);
+    const int lo = max(l0, 0), hi = min(l0 + lanes, WPC);
+    const int* half = (u & 1) ? right : left;
+    if (u < rows && row >= 0 && row < 2 * HP2 && lo < hi) prefetch_l2(half + row * WPC + lo, half + row * WPC + hi);
+  }
+};
+
+// ---- word formats ----
 
 // The v2 word of a valid cell with location byte `loc`: obs_tail::V2Words
 // rewritten for fewer instructions, word for word the same. With
@@ -213,6 +406,7 @@ struct Plan {
 // word.
 struct V2Pack {
   static constexpr int kEmpty = obs_tail::V2Words::kEmpty;
+  static constexpr bool kAnyWidth = false;  // v2 rows are a multiple of 128 words
   int sh;
   unsigned keep;  // 0xFF00FF | feat_mask
   __device__ explicit V2Pack(int wide) : sh(wide ? 14 : 15), keep(wide ? 0xFF3FFFu : 0xFF7FFFu) {}
@@ -224,81 +418,121 @@ struct V2Pack {
   }
 };
 
-// The tail of every agent of one env over the staged image `img` int32
-// [HP, WPC]: the env's window corners `row0`, `lane0` [A] and globals
-// `gplus` [A, G] (staged in shared memory by the caller, or in device
-// memory), its output rows `out` [A, out_w] and counts `attempted` [A].
-// Each row is compacted into `rows`, this warp's two row buffers
-// [2][out_w], and stored from there by bulk copy; `nrow` counts the rows
-// this warp stored so far (which buffer is next). Requires G <= 32 (every
-// global in round 0) and out_w % 4 == 0. Call after a __syncthreads that
-// follows the last write to the image and the tables; drain with
-// bulk_wait_all (lane 0) before the block exits.
-template <int R>
-__device__ inline void agents_bulk(const V2Pack fmt, const Plan<R>& plan, const int* img, int HP, int WPC,
-                                   const int* row0, const int* lane0, const int* gplus, int* __restrict__ out,
-                                   int* __restrict__ attempted, int A, int G, int out_w, int* rows,
-                                   unsigned& nrow) {
+// The v1 word of a valid cell (obs_tail::V1Words). v1 rows may have any
+// width (the reference's budget GP + 128 k).
+struct V1Pack {
+  static constexpr int kEmpty = obs_tail::V1Words::kEmpty;
+  static constexpr bool kAnyWidth = true;
+  __device__ __forceinline__ int operator()(int cell, unsigned loc) const { return (cell - 1) | (int)(loc << 16); }
+};
+
+// ---- one agent's row ----
+
+// Words of a row buffer: out_w rounded up to whole 16-byte units.
+__device__ __forceinline__ int row_stride(int out_w) { return (out_w + 3) & ~3; }
+
+// The candidate rounds of one agent: `load(entry)` reads each window
+// candidate, globals take `gword`, entries past the last candidate read 0;
+// `emit(cell, entry)` ranks each round. kB rounds' loads go out before
+// their ballots (1: each round loads, then ranks).
+template <int R, int kB, class Load, class Emit>
+__device__ __forceinline__ void rounds(const Plan<R>& plan, int gword, Load load, Emit emit) {
+  static_assert(R % kB == 0, "a batch of rounds divides the rounds");
+#pragma unroll
+  for (int r0 = 0; r0 < R; r0 += kB) {
+    int cell[kB];
+#pragma unroll
+    for (int i = 0; i < kB; ++i) cell[i] = load(plan.en[r0 + i]);
+#pragma unroll
+    for (int i = 0; i < kB; ++i) {
+      const unsigned en = plan.en[r0 + i];
+      int c = cell[i];
+      if (en & kDead) c = 0;
+      if (r0 + i == 0 && (en & kGlobal)) c = gword;
+      emit(c, en);
+    }
+  }
+}
+
+// The tail of one agent, whose window starts at (r0, l0) of `read`'s image,
+// with global word `gword` (lane < G; 0 elsewhere): its row out[i] [out_w]
+// and count attempted[i]. The row is compacted into `rows`, this warp's two row
+// buffers [2][row_stride(out_w)], and stored from there by bulk copy (or,
+// for a format of any width, by the warp where out_w % 4 != 0: a branch
+// that costs the v2 kernels registers, so they are compiled without it);
+// `nrow` counts the rows this warp stored so far (which buffer is next).
+// Requires G <= 32 (every global in round 0) and, unless Pack::kAnyWidth,
+// out_w % 4 == 0. Drain with bulk_wait_all (lane 0) before the block
+// exits.
+template <int R, class Pack, class Read>
+__device__ inline void tail_row(const Pack fmt, const Plan<R>& plan, const Read& read, int r0, int l0, int gword,
+                                int* __restrict__ out, int* __restrict__ attempted, size_t i, int out_w, int* rows,
+                                unsigned& nrow) {
+  constexpr int kB = Read::kAhead ? (R > 16 ? 8 : R) : 1;
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int a = warp; a < A; a += nwarps) {
-    const int r0 = row0[a];
-    const int l0 = lane0[a];
-    const int gword = lane < G ? gplus[a * G + lane] : 0;
-    int* row = rows + (nrow & 1) * out_w;
-    const uint32_t row_s = smem_addr(row);
-    // The store issued from this buffer two rows ago has read it.
-    if (lane == 0) bulk_wait_read_one();
-    __syncwarp();
-    int count = 0;
-    // One round: rank the valid lanes by ballot, store each valid word at
-    // its rank in the row buffer (ranks at or past out_w dropped).
-    auto emit = [&](int cell, unsigned en) {
-      const bool ok = cell > 0;
-      const unsigned vote = __ballot_sync(0xFFFFFFFFu, ok);
-      const int rank = count + __popc(vote & below);
-      count += __popc(vote);
-      const int w = fmt(cell, (en >> 22) & 0xFFu);
-      if (ok && rank < out_w) sts(row_s + 4u * (unsigned)rank, w);
-    };
-    if (r0 >= 0 && r0 + plan.win_rows <= HP && l0 >= 0 && l0 + plan.win_lanes <= WPC) {
-      // The whole window lies inside the image: one load per candidate.
-      const uint32_t corner = smem_addr(img) + 4u * (unsigned)(r0 * WPC + l0);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const unsigned en = plan.en[r];
-        int cell = lds(corner + (en & 0x3FFFFu));
-        if (en & kDead) cell = 0;
-        if (r == 0 && (en & kGlobal)) cell = gword;
-        emit(cell, en);
-      }
-    } else {
-      const obs_tail::FlatImage fetch{img, HP, WPC};
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const unsigned en = plan.en[r];
-        const int u = (en >> 18) & 15;
-        int cell = fetch(r0, u, l0 + (int)((en & 0x3FFFFu) >> 2) - u * WPC);
-        if (en & kDead) cell = 0;
-        if (r == 0 && (en & kGlobal)) cell = gword;
-        emit(cell, en);
-      }
-    }
-    // Empty words after the valid ones: single words up to a 16-byte
-    // boundary, then 16-byte stores.
-    const int n = count < out_w ? count : out_w;
-    const int n4 = (n + 3) & ~3;
-    if (n + lane < n4) sts(row_s + 4u * (unsigned)(n + lane), V2Pack::kEmpty);
-    for (int i = n4 + 4 * lane; i < out_w; i += 128) sts4(row_s + 4u * (unsigned)i, V2Pack::kEmpty);
+  const int stride = Pack::kAnyWidth ? row_stride(out_w) : out_w;
+  int* row = rows + (nrow & 1) * stride;
+  const uint32_t row_s = smem_addr(row);
+  // The store made from this buffer two rows ago has read it.
+  if (lane == 0) bulk_wait_read_one();
+  __syncwarp();
+  int count = 0;
+  // One round: rank the valid lanes by ballot, store each valid word at its
+  // rank in the row buffer (ranks at or past out_w dropped).
+  auto emit = [&](int cell, unsigned en) {
+    const bool ok = cell > 0;
+    const unsigned vote = __ballot_sync(0xFFFFFFFFu, ok);
+    const int rank = count + __popc(vote & below);
+    count += __popc(vote);
+    const int w = fmt(cell, (en >> 22) & 0xFFu);
+    if (ok && rank < out_w) sts(row_s + 4u * (unsigned)rank, w);
+  };
+  if (read.inside(r0, l0, plan.win_rows, plan.win_lanes)) {
+    // The whole window lies inside the image: one load per candidate.
+    const auto c = read.corner(r0, l0);
+    rounds<R, kB>(plan, gword, [&](unsigned en) { return read.load(c, en); }, emit);
+  } else {
+    rounds<R, kB>(plan, gword, [&](unsigned en) { return read.checked(r0, l0, en); }, emit);
+  }
+  // Empty words after the valid ones: single words up to a 16-byte
+  // boundary, then 16-byte stores.
+  const int n = count < out_w ? count : out_w;
+  const int n4 = (n + 3) & ~3;
+  if (n + lane < n4) sts(row_s + 4u * (unsigned)(n + lane), Pack::kEmpty);
+  for (int i = n4 + 4 * lane; i < stride; i += 128) sts4(row_s + 4u * (unsigned)i, Pack::kEmpty);
+  if (!Pack::kAnyWidth || (out_w & 3) == 0) {
     fence_proxy_async();
     __syncwarp();
     if (lane == 0) {
-      bulk_store(out + (size_t)a * out_w, row, (unsigned)out_w * 4u);
-      attempted[a] = count;
+      bulk_store(out + i * out_w, row, (unsigned)out_w * 4u);
+      attempted[i] = count;
     }
-    ++nrow;
+  } else {
+    // The row does not start on a 16-byte boundary: the warp copies it out.
+    __syncwarp();
+    int* orow = out + i * out_w;
+    for (int w = lane; w < out_w; w += 32) orow[w] = row[w];
+    if (lane == 0) attempted[i] = count;
+  }
+  ++nrow;
+}
+
+// tail_row for every agent of one env, warp w taking agents w, w + warps,
+// ...: the env's window corners `row0`, `lane0` [A] and globals `gplus`
+// [A, G] (staged in shared memory by the caller, or in device memory), its
+// output rows `out` [A, out_w] and counts `attempted` [A]. Call after a
+// __syncthreads that follows the last write to a staged image and tables.
+template <int R, class Pack, class Read>
+__device__ inline void agents_bulk(const Pack fmt, const Plan<R>& plan, const Read& read, const int* row0,
+                                   const int* lane0, const int* gplus, int* __restrict__ out,
+                                   int* __restrict__ attempted, int A, int G, int out_w, int* rows, unsigned& nrow) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  for (int a = warp; a < A; a += nwarps) {
+    const int gword = lane < G ? gplus[a * G + lane] : 0;
+    tail_row(fmt, plan, read, row0[a], lane0[a], gword, out, attempted, a, out_w, rows, nrow);
   }
 }
 
@@ -319,6 +553,156 @@ __device__ inline void stage_runs(int* dst, const Run (&runs)[kParts]) {
     for (int t = threadIdx.x; t < runs[p].n; t += blockDim.x) cp_async4(dst + at + t, runs[p].src + t);
     at += runs[p].n;
   }
+}
+
+// ---- env loops over per-env images (B5, B6b) ----
+
+// Shared memory of staged_envs (bytes): the mbarriers, per stage the env's
+// image (kParts parts of part_words) and its agent tables, then each warp's
+// two row buffers. tail_plan.smem_bytes computes the same on the host.
+constexpr int kBarrierBytes = 128;
+
+__device__ __forceinline__ int staged_tables_words(int A, int G) { return (A * (2 + G) + 3) & ~3; }
+
+// Persistent blocks over envs e = blockIdx.x, += gridDim.x, each env's image
+// staged in shared memory: kParts = 1, the flat image src0[e] int32
+// [part_rows, WPC]; kParts = 2, the paired halves src0[e] (left) and src1[e]
+// (right), int32 [part_rows = 2*HP2, WPC] each, copied back to back. One
+// thread copies the parts with bulk copies onto the stage's mbarrier,
+// streamed through L2 (each env's image is read once); every thread copies
+// its share of the agent tables (row0, lane0, front [A, G]) with cp.async.
+// With kStages = 2 the env ahead is staged while the current one runs; with
+// one, each env is staged just before its tail. The whole parts must be
+// whole 16-byte units, 16-byte aligned.
+template <int R, int kStages, int kParts, class Pack>
+__device__ inline void staged_envs(const Pack fmt, const int* __restrict__ geom, const int* __restrict__ src0,
+                                   const int* __restrict__ src1, int part_rows, int WPC,
+                                   const int* __restrict__ row0, const int* __restrict__ lane0,
+                                   const int* __restrict__ front, int* __restrict__ out,
+                                   int* __restrict__ attempted, int E, int A, int G, int K, int S, int out_w,
+                                   unsigned char* smem) {
+  static_assert(kParts == 1 || kParts == 2, "a flat image or two paired halves");
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  const int n_part = part_rows * WPC;
+  const int n_img = kParts * n_part;
+  const int n_tab = staged_tables_words(A, G);
+  int* imgs = reinterpret_cast<int*>(smem + kBarrierBytes);
+  int* tabs = imgs + kStages * n_img;
+  const int tid = threadIdx.x;
+  int* rows = tabs + kStages * n_tab + (tid >> 5) * 2 * row_stride(out_w);
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&bar[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto read = [&](int s) {
+    if constexpr (kParts == 1) {
+      return SmemFlat{imgs + s * n_img, part_rows, WPC};
+    } else {
+      return SmemPaired{imgs + s * n_img, part_rows / 2, WPC};
+    }
+  };
+  Plan<R> plan;
+  plan.build(geom, G, K, S, read(0).form());
+
+  // Every thread: env `env`'s agent tables into stage s with cp.async (one
+  // group); thread 0: its image parts with bulk copies onto bar[s].
+  auto stage = [&](int env, int s) {
+    const size_t ea0 = (size_t)env * A;
+    const Run runs[3] = {{row0 + ea0, A}, {lane0 + ea0, A}, {front + ea0 * G, A * G}};
+    stage_runs(tabs + s * n_tab, runs);
+    cp_async_commit();
+    if (tid == 0) {
+      const uint64_t stream = policy_stream();
+      fence_proxy_async();
+      mbar_expect_tx(&bar[s], (unsigned)n_img * 4u);
+      bulk_copy(imgs + s * n_img, src0 + (size_t)env * n_part, (unsigned)n_part * 4u, &bar[s], stream);
+      if constexpr (kParts == 2) {
+        bulk_copy(imgs + s * n_img + n_part, src1 + (size_t)env * n_part, (unsigned)n_part * 4u, &bar[s], stream);
+      }
+    }
+  };
+  // The first kStages - 1 envs of this block, ahead of the loop.
+  for (int i = 0; i + 1 < kStages; ++i) {
+    if ((int)blockIdx.x + i * (int)gridDim.x < E) stage(blockIdx.x + i * gridDim.x, i);
+  }
+
+  unsigned nrow = 0;
+  int it = 0;
+  for (int e = blockIdx.x; e < E; e += gridDim.x, ++it) {
+    const int s = it % kStages;
+    // The stage kStages - 1 envs ahead was last read before the previous
+    // env's closing __syncthreads: stage that env there now, then wait for
+    // this one (with one stage, stage it now and wait).
+    const int e_ahead = e + (kStages - 1) * gridDim.x;
+    if (e_ahead < E) {
+      stage(e_ahead, (it + kStages - 1) % kStages);
+      cp_async_wait<kStages - 1>();
+    } else {
+      cp_async_wait_all();
+    }
+    mbar_wait(&bar[s], (it / kStages) & 1);
+    __syncthreads();
+    const int* tab = tabs + s * n_tab;
+    const size_t ea0 = (size_t)e * A;
+    agents_bulk(fmt, plan, read(s), tab, tab + A, tab + 2 * A, out + ea0 * out_w, attempted + ea0, A, G, out_w,
+                rows, nrow);
+    __syncthreads();
+  }
+  if ((tid & 31) == 0) bulk_wait_all();
+}
+
+// Persistent blocks over envs e = blockIdx.x, += gridDim.x, each env's image
+// read from device memory through `src` (DeviceFlat or DevicePaired, at env
+// 0; src.at(e) is env e's). No block-wide barrier: warp w walks its agents
+// w, w + warps, ... of each of the block's envs in turn, so the warps of a
+// block share the env's window rows in L1. Each warp loads the tables (row0,
+// lane0, front [E, A, G]) two agents ahead and prefetches the next agent's
+// window rows into L2 while the current agent's tail runs. Shared memory:
+// each warp's two row buffers.
+template <int R, class Pack, class Src>
+__device__ inline void device_envs(const Pack fmt, const int* __restrict__ geom, const Src src,
+                                   const int* __restrict__ row0, const int* __restrict__ lane0,
+                                   const int* __restrict__ front, int* __restrict__ out,
+                                   int* __restrict__ attempted, int E, int A, int G, int K, int S, int out_w,
+                                   unsigned char* smem) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int* rows = reinterpret_cast<int*>(smem) + warp * 2 * row_stride(out_w);
+  Plan<R> plan;
+  plan.build(geom, G, K, S, src.form());
+  if (warp >= A) return;
+
+  struct Item {
+    int e, a, r0, l0, g;
+  };
+  auto item = [&](int e, int a) {
+    Item it{e, a, 0, 0, 0};
+    if (e < E) {
+      const size_t ea = (size_t)e * A + a;
+      it.r0 = __ldg(row0 + ea);
+      it.l0 = __ldg(lane0 + ea);
+      if (lane < G) it.g = __ldg(front + ea * G + lane);
+    }
+    return it;
+  };
+  auto next = [&](const Item& it) {
+    return it.a + nwarps < A ? item(it.e, it.a + nwarps) : item(it.e + (int)gridDim.x, warp);
+  };
+  Item cur = item(blockIdx.x, warp);
+  Item nxt = next(cur);
+  unsigned nrow = 0;
+  while (cur.e < E) {
+    if (nxt.e < E) src.at(nxt.e).prefetch(nxt.r0, nxt.l0, plan.win_rows, plan.win_lanes);
+    const Item after = next(nxt);
+    tail_row(fmt, plan, src.at(cur.e), cur.r0, cur.l0, cur.g, out, attempted, (size_t)cur.e * A + cur.a, out_w, rows,
+             nrow);
+    cur = nxt;
+    nxt = after;
+  }
+  if (lane == 0) bulk_wait_all();
 }
 
 }  // namespace tail_bulk

@@ -1,5 +1,5 @@
-// The v2 observation tail over row-paired per-env images in device memory,
-// written for Hopper (sm_90a).
+// The v2 observation tail over row-paired per-env images, written for Hopper
+// (sm_90a).
 //
 // Replaces: obs_tail_dyn_v3_pallas, mettagrid_tpu/engine/pallas_kernels.py:1261
 // (kernel B6b), normal packing (the v3 gate excludes the wide one).
@@ -9,26 +9,44 @@
 // PairedImage in obs_tail.cuh; the glue in engine/obs.py pairs an image
 // built beforehand): the G globals and the window candidates, valid when
 // > 0, front-compacted into packed words, and the attempted counts. The
-// words equal B3's on the unpaired image.
+// window of an agent whose image row is r0 reads half row
+// (r0 & 1) * HP2 + (r0 >> 1) + (u >> 1) of half u & 1 for its row u, on
+// whatever halves it is given: the words equal B3's on the unpaired image
+// where the halves are that image's pairing.
 //
 // What bounds it: bytes. At the arena_mood_v3 shapes (4096 envs x 24 agents,
-// S = 4, out_w = 256) the output words are 101 MB; of the two 268 MB halves
-// it needs only the words inside some agent's window, each once. The work
-// per byte is a few integer operations.
+// HP2 32, WPC 256, G 3, K 121, S 4: 487 candidates, 16 rounds; out_w = 384)
+// the output words are 151 MB; of the two 268 MB halves the function needs
+// only the words inside some agent's window, each once. The work per byte is
+// a few integer operations.
 //
-// What the design does about it: as B3, each warp reads its agent's window
-// cells straight from device memory, so the halves are read only where a
-// window lies, and the tail writes every output word once. The candidate
-// tables sit in shared memory. No float arithmetic touches a word.
+// What the design does about it (obs_tail_bulk.cuh): persistent blocks, the
+// candidate plan in registers in its paired form (window row u's half is
+// bit 0 of the entry's row field, its half row u >> 1), built once per
+// block, branch-free rounds with one bounds test per agent, rows compacted
+// in shared memory and bulk-stored, in one of two modes that the wrapper
+// picks from the shapes (engine/kernels/tail_plan.py):
+// - device (kStages 0): the halves are read from device memory through the
+//   plan, all of an agent's loads sent before its ballots, the next
+//   agent's window rows of both halves prefetched into L2 and its tables
+//   loaded ahead; the warps of a block share the env's rows in L1. Only the
+//   window words are read;
+// - staged halves (kStages 1 or 2): both halves of an env, back to back in
+//   shared memory, arrive by two bulk copies (TMA) onto one mbarrier, the
+//   tables by cp.async; the plan's offsets then carry the half. Each env's
+//   halves are read whole (128 KB at the bench shapes, where one stage
+//   leaves one block per SM).
+// No float arithmetic touches a word.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "obs_tail.cuh"
+#include "obs_tail_bulk.cuh"
 
 namespace {
 
-__global__ void obs_tail_dyn_v3_kernel(
+template <int R, int kStages>
+__global__ void __launch_bounds__(512, 2) obs_tail_dyn_v3_kernel(
     const int* __restrict__ imgp_l,  // [E, 2*HP2, WPC]
     const int* __restrict__ imgp_r,  // [E, 2*HP2, WPC]
     const int* __restrict__ row0,    // [E, A]
@@ -37,31 +55,81 @@ __global__ void obs_tail_dyn_v3_kernel(
     const int* __restrict__ geom,    // [K, 3]: (u, v, loc) per window cell
     int* __restrict__ out,           // [E, A, out_w]
     int* __restrict__ attempted,     // [E, A]
-    int HP2, int WPC, int A, int S, int G, int K, int out_w) {
-  extern __shared__ int tab[];  // [3 * K * S] candidate tables
-  const int e = blockIdx.x;
-  const size_t off = (size_t)e * 2 * HP2 * WPC;
-  obs_tail::load_tables(geom, K, S, tab);
-  __syncthreads();
-  obs_tail::agents_with(obs_tail::V2Words(0), obs_tail::PairedImage{imgp_l + off, imgp_r + off, HP2, WPC}, tab,
-                        K * S, row0, lane0, gplus, out, attempted, e, A, G, out_w);
+    int E, int HP2, int WPC, int A, int S, int G, int K, int out_w) {
+  // Shared memory, staged: the mbarriers (128 bytes), the halves
+  // [kStages][2][2*HP2 * WPC], the agent tables [kStages][A * (2 + G)]
+  // (row0, lane0, gplus; padded to 16 bytes), then each warp's two row
+  // buffers; device: the row buffers alone.
+  extern __shared__ __align__(128) unsigned char smem[];
+  const tail_bulk::V2Pack fmt(0);
+  if constexpr (kStages == 0) {
+    tail_bulk::device_envs<R>(fmt, geom, tail_bulk::DevicePaired{imgp_l, imgp_r, HP2, WPC}, row0, lane0, gplus,
+                              out, attempted, E, A, G, K, S, out_w, smem);
+  } else {
+    tail_bulk::staged_envs<R, kStages, 2>(fmt, geom, imgp_l, imgp_r, 2 * HP2, WPC, row0, lane0, gplus, out,
+                                          attempted, E, A, G, K, S, out_w, smem);
+  }
+}
+
+using KernelFn = void (*)(const int*, const int*, const int*, const int*, const int*, const int*, int*, int*, int,
+                          int, int, int, int, int, int, int);
+
+// The dynamic shared memory each instance is allowed, by stage count (0:
+// device mode) and round count.
+int allowed_smem[3][33] = {};
+
+template <int kStages>
+KernelFn pick_rounds(int rounds) {
+  switch (rounds) {
+    case 4: return obs_tail_dyn_v3_kernel<4, kStages>;
+    case 8: return obs_tail_dyn_v3_kernel<8, kStages>;
+    case 12: return obs_tail_dyn_v3_kernel<12, kStages>;
+    case 16: return obs_tail_dyn_v3_kernel<16, kStages>;
+    case 24: return obs_tail_dyn_v3_kernel<24, kStages>;
+    case 32: return obs_tail_dyn_v3_kernel<32, kStages>;
+    default: return nullptr;
+  }
+}
+
+// The instance for `rounds` candidate rounds and `stages` (0: device mode),
+// with its dynamic shared memory allowed up to at least `smem` bytes; null
+// for an unknown combination.
+KernelFn instance(int rounds, int stages, int smem, cudaError_t* err) {
+  KernelFn k = stages == 0 ? pick_rounds<0>(rounds)
+               : stages == 1 ? pick_rounds<1>(rounds)
+               : stages == 2 ? pick_rounds<2>(rounds)
+                             : nullptr;
+  *err = k == nullptr ? cudaErrorInvalidValue : tail_bulk::allow_smem((const void*)k, smem, &allowed_smem[stages][rounds]);
+  return k;
 }
 
 }  // namespace
 
-// Launches the kernel on `stream`; returns the cudaError_t of the launch.
+// Blocks per SM (out[0]) and registers per thread (out[1]) of the instance
+// at `warps` warps per block and `smem` bytes of dynamic shared memory;
+// returns the cudaError_t.
+extern "C" int obs_tail_dyn_v3_occupancy(int rounds, int stages, int warps, int smem, int* out) {
+  cudaError_t err;
+  KernelFn k = instance(rounds, stages, smem, &err);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, k);
+  if (err != cudaSuccess) return (int)err;
+  out[1] = attr.numRegs;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], k, 32 * warps, smem);
+}
+
+// Launches the kernel on `stream` with `grid` persistent blocks of `warps`
+// warps; returns the cudaError_t of the launch.
 extern "C" int obs_tail_dyn_v3_launch(
     const void* imgp_l, const void* imgp_r, const void* row0, const void* lane0, const void* gplus,
     const void* geom, void* out, void* attempted, int HP2, int WPC, int E, int A, int S, int G, int K,
-    int out_w, void* stream) {
-  const int smem = 3 * K * S * (int)sizeof(int);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        obs_tail_dyn_v3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  obs_tail_dyn_v3_kernel<<<E, obs_tail::block_threads(A), smem, (cudaStream_t)stream>>>(
+    int out_w, int rounds, int stages, int warps, int grid, int smem, void* stream) {
+  cudaError_t err;
+  KernelFn k = instance(rounds, stages, smem, &err);
+  if (err != cudaSuccess) return (int)err;
+  k<<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
       (const int*)imgp_l, (const int*)imgp_r, (const int*)row0, (const int*)lane0, (const int*)gplus,
-      (const int*)geom, (int*)out, (int*)attempted, HP2, WPC, A, S, G, K, out_w);
+      (const int*)geom, (int*)out, (int*)attempted, E, HP2, WPC, A, S, G, K, out_w);
   return (int)cudaGetLastError();
 }

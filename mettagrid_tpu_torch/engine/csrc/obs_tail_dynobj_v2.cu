@@ -138,8 +138,8 @@ __global__ void __launch_bounds__(512, 2) obs_tail_dynobj_v2_kernel(
       if (r >= 0 && r < HP && l >= 0 && l < WPC) atomicAdd(&img[r * WPC + l], w);
     }
     __syncthreads();
-    tail_bulk::agents_bulk(fmt, plan, img, HP, WPC, t_row0, t_lane0, t_gplus, out + ea0 * out_w, attempted + ea0,
-                           A, G, out_w, rows, nrow);
+    tail_bulk::agents_bulk(fmt, plan, tail_bulk::SmemFlat{img, HP, WPC}, t_row0, t_lane0, t_gplus,
+                           out + ea0 * out_w, attempted + ea0, A, G, out_w, rows, nrow);
     __syncthreads();
 
     // ---- write 0 back at exactly the cells this env scattered into: exact

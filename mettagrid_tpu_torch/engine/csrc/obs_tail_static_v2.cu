@@ -140,8 +140,8 @@ __global__ void __launch_bounds__(512, 2) obs_tail_static_v2_kernel(
     }
     __syncthreads();
     const size_t ea0 = (size_t)e * A;
-    tail_bulk::agents_bulk(fmt, plan, img, HP, WPC, tab, tab + A, t_words + A * S, out + ea0 * out_w,
-                           attempted + ea0, A, G, out_w, rows, nrow);
+    tail_bulk::agents_bulk(fmt, plan, tail_bulk::SmemFlat{img, HP, WPC}, tab, tab + A, t_words + A * S,
+                           out + ea0 * out_w, attempted + ea0, A, G, out_w, rows, nrow);
     __syncthreads();
   }
   if ((tid & 31) == 0) tail_bulk::bulk_wait_all();

@@ -35,7 +35,7 @@ def obs_tail_dyn_v2_ref(imgp, row0, lane0, gplus, geom, S: int, out_w: int, wide
 
 
 def check_window_inputs(name, imgp, row0, lane0, front, geom, S, out_w):
-    """The checks B3's and B5's wrappers share: one device, int32,
+    """The checks the wrappers of B3, B5 and B6b share: one device, int32,
     contiguous, matching shapes, non-empty."""
     dev = imgp.device
     for arg, t in dict(imgp=imgp, row0=row0, lane0=lane0, front=front, geom=geom).items():

@@ -2,8 +2,9 @@
 
 Replaces the TPU kernel ``obs_tail_dyn_v3_pallas``
 (mettagrid_tpu/engine/pallas_kernels.py:1261). The CUDA source is
-``engine/csrc/obs_tail_dyn_v3.cu``; its head says what bounds it and how the
-design answers that.
+``engine/csrc/obs_tail_dyn_v3.cu`` over the persistent machinery of
+``obs_tail_bulk.cuh``; its head says what bounds it and how the design
+answers that.
 
 An image int32[HP, WPC] is held as two row-paired halves, left and right,
 each int32[2*HP2, WPC] (engine/obs.py ``pair_rows``): rows u < HP2 of the
@@ -13,7 +14,10 @@ row 2k from ``left[base + k]`` and its row 2k + 1 from ``right[base + k]``,
 where ``base = (r & 1) * HP2 + (r >> 1)``.
 
 ``obs_tail_dyn_v3`` launches the kernel for CUDA tensors and takes the plain
-PyTorch version ``obs_tail_dyn_v3_ref`` for CPU tensors. Both compute B3's
+PyTorch version ``obs_tail_dyn_v3_ref`` for CPU tensors. The launch
+(persistent blocks, warps per block, the halves read from device memory or
+staged in shared memory) is planned from the shapes by ``tail_plan``. Both
+compute B3's
 words (``obs_tail_static_v2.v2_words_ref``) through those paired reads: per
 agent the G global words, the window at ``(row0 + u_k, lane0 + v_k*S + s)``
 in Manhattan order (``geom``; cells outside the image read as empty),
@@ -28,9 +32,9 @@ import ctypes
 
 import torch
 
-from mettagrid_tpu_torch.engine.kernels import build
+from mettagrid_tpu_torch.engine.kernels import build, tail_plan
 from mettagrid_tpu_torch.engine.kernels.obs_tail_dyn_v2 import check_window_inputs
-from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import v2_words_ref
+from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import launch, v2_words_ref
 from mettagrid_tpu_torch.engine.program import GLOBAL_LOCATION
 
 
@@ -82,39 +86,54 @@ def check_pair(name, left, right):
 def obs_tail_dyn_v3(imgp_l, imgp_r, row0, lane0, gplus, geom, S: int, out_w: int):
     """B6b on the tensors' device: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. Returns (words int32[E, A, out_w], attempted
-    int32[E, A]). Counts kernel launches in ``obs_tail_dyn_v3.launches``."""
+    int32[E, A]). Counts kernel launches in ``obs_tail_dyn_v3.launches`` and
+    keeps the last launch's record in ``obs_tail_dyn_v3.last_launch``."""
     if imgp_l.device.type == "cpu":
         return obs_tail_dyn_v3_ref(imgp_l, imgp_r, row0, lane0, gplus, geom, S, out_w)
     if imgp_l.device.type != "cuda":
         raise ValueError(f"obs_tail_dyn_v3 runs on CUDA or CPU tensors, not {imgp_l.device}")
+    out, attempted, obs_tail_dyn_v3.last_launch = launch_plans(
+        None, imgp_l, imgp_r, row0, lane0, gplus, geom, S, out_w
+    )
+    obs_tail_dyn_v3.launches += 1
+    return out, attempted
+
+
+def launch_plans(plans, imgp_l, imgp_r, row0, lane0, gplus, geom, S: int, out_w: int):
+    """The CUDA kernel on CUDA tensors with the best of ``plans`` (None: every
+    candidate plan of tail_plan, as the wrapper launches it; one plan to time
+    it alone, tools/tail_sweep.py). Returns (words, attempted, the launch's
+    record); counts no launch. Raises where the plans cannot hold the
+    shapes (tail_plan.check_holds)."""
     check_window_inputs("obs_tail_dyn_v3", imgp_l, row0, lane0, gplus, geom, S, out_w)
     check_pair("obs_tail_dyn_v3", imgp_l, imgp_r)
     E, HP2x2, WPC = imgp_l.shape
     A = row0.shape[1]
     G, K = gplus.shape[2], geom.shape[0]
-    lib = _library()
+    if plans is None:
+        plans = tail_plan.candidate_plans("B6b", HP2x2, WPC, A, G, K, S, out_w)
+    else:
+        tail_plan.check_holds("B6b", plans, HP2x2, WPC, G, S, out_w)
+    if any(p.stages for p in plans) and (imgp_l.data_ptr() % 16 or imgp_r.data_ptr() % 16):
+        raise ValueError("obs_tail_dyn_v3: staged halves must be 16-byte aligned")
     dev = imgp_l.device
     out = torch.empty((E, A, out_w), dtype=torch.int32, device=dev)
     attempted = torch.empty((E, A), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.obs_tail_dyn_v3_launch(
-            imgp_l.data_ptr(), imgp_r.data_ptr(), row0.data_ptr(), lane0.data_ptr(), gplus.data_ptr(),
-            geom.data_ptr(), out.data_ptr(), attempted.data_ptr(), HP2x2 // 2, WPC, E, A, S, G, K, out_w, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"obs_tail_dyn_v3: kernel launch failed with cudaError_t {err}")
-    obs_tail_dyn_v3.launches += 1
-    return out, attempted
+    record = launch(_library(), "obs_tail_dyn_v3", plans, E, dev, (
+        imgp_l.data_ptr(), imgp_r.data_ptr(), row0.data_ptr(), lane0.data_ptr(), gplus.data_ptr(),
+        geom.data_ptr(), out.data_ptr(), attempted.data_ptr(), HP2x2 // 2, WPC, E, A, S, G, K, out_w,
+    ))
+    return out, attempted, record
 
 
 obs_tail_dyn_v3.launches = 0
+obs_tail_dyn_v3.last_launch = None
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load("obs_tail_dyn_v3")
     fn = lib.obs_tail_dyn_v3_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

@@ -176,8 +176,8 @@ def launch(lib, name: str, plans, E: int, device, args) -> dict:
     (tail_plan.candidate_plans) that leaves the most warps resident per SM
     on ``device``, on a persistent grid for E envs, after ``args``
     (pointers and shapes); raises on a launch error. Returns the launch's
-    record: grid, warps, stages, rounds, shared bytes, blocks per SM and
-    registers."""
+    record: grid, warps, stages, mode, rounds, shared bytes, blocks per SM,
+    registers and SMs."""
     occ = {p: tail_plan.occupancy(lib, name, p, device) for p in plans}
     plan = tail_plan.choose(plans, lambda p: occ[p][0])
     blocks_per_sm, regs, sms = occ[plan]
@@ -189,8 +189,8 @@ def launch(lib, name: str, plans, E: int, device, args) -> dict:
         )
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError_t {err}")
-    return dict(grid=grid, warps=plan.warps, stages=plan.stages, rounds=plan.rounds, smem_bytes=plan.smem_bytes,
-                blocks_per_sm=blocks_per_sm, registers=regs, sms=sms)
+    return dict(grid=grid, warps=plan.warps, stages=plan.stages, mode=plan.mode, rounds=plan.rounds,
+                smem_bytes=plan.smem_bytes, blocks_per_sm=blocks_per_sm, registers=regs, sms=sms)
 
 
 def obs_tail_static_v2(static_imgp, map_idx, row0, lane0, rext, lext, words, gplus, geom, out_w: int, wide: bool = False):

@@ -2,15 +2,17 @@
 
 Replaces the TPU kernel ``obs_tail_pallas``
 (mettagrid_tpu/engine/pallas_kernels.py:211). The CUDA source is
-``engine/csrc/obs_tail_v1.cu`` (the tail, which B1-B5 share and which runs
-here in its v1 word format, is in ``obs_tail.cuh``); its head says what bounds it and how the design
+``engine/csrc/obs_tail_v1.cu`` over the persistent machinery of
+``obs_tail_bulk.cuh``; its head says what bounds it and how the design
 answers that.
 
 The v1 tail serves the configs that the v2 tail's gate turns away (globals
 that can be absent, wide feature ids). ``obs_tail_v1`` launches the kernel
 for CUDA tensors and takes the plain PyTorch version ``obs_tail_v1_ref`` for
-CPU tensors. Both compute, per env e and agent a, over ``imgp[e]``,
-int32[HP, WPC] of +1-encoded words (``tail_v1_ref``):
+CPU tensors. The launch (persistent blocks, warps per block, the image
+staged in shared memory or read from device memory, envs staged ahead) is
+planned from the shapes by ``tail_plan``. Both compute, per env e and agent
+a, over ``imgp[e]``, int32[HP, WPC] of +1-encoded words (``tail_v1_ref``):
 
 * the candidates: GP global words ``gwords[e, a]`` (+1-encoded, 0 = absent),
   then the image at ``(row0 + u_k, lane0 + v_k*S + s)`` for the K window
@@ -28,9 +30,9 @@ import ctypes
 
 import torch
 
-from mettagrid_tpu_torch.engine.kernels import build
+from mettagrid_tpu_torch.engine.kernels import build, tail_plan
 from mettagrid_tpu_torch.engine.kernels.obs_tail_dyn_v2 import check_window_inputs
-from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import candidates, compact_ref
+from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import candidates, compact_ref, launch
 
 
 def tail_v1_ref(img, HP: int, WPC: int, row0, lane0, gwords, geom, S: int, out_w: int):
@@ -51,38 +53,51 @@ def obs_tail_v1_ref(imgp, row0, lane0, gwords, geom, S: int, out_w: int):
 def obs_tail_v1(imgp, row0, lane0, gwords, geom, S: int, out_w: int):
     """B5 on the tensors' device: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. Returns (words int32[E, A, out_w], attempted
-    int32[E, A]). Counts kernel launches in ``obs_tail_v1.launches``."""
+    int32[E, A]). Counts kernel launches in ``obs_tail_v1.launches`` and
+    keeps the last launch's record in ``obs_tail_v1.last_launch``."""
     if imgp.device.type == "cpu":
         return obs_tail_v1_ref(imgp, row0, lane0, gwords, geom, S, out_w)
     if imgp.device.type != "cuda":
         raise ValueError(f"obs_tail_v1 runs on CUDA or CPU tensors, not {imgp.device}")
-    check_window_inputs("obs_tail_v1", imgp, row0, lane0, gwords, geom, S, out_w)
-    E, HP, WPC = imgp.shape
-    A = row0.shape[1]
-    GP, K = gwords.shape[2], geom.shape[0]
-    lib = _library()
-    dev = imgp.device
-    out = torch.empty((E, A, out_w), dtype=torch.int32, device=dev)
-    attempted = torch.empty((E, A), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.obs_tail_v1_launch(
-            imgp.data_ptr(), row0.data_ptr(), lane0.data_ptr(), gwords.data_ptr(), geom.data_ptr(),
-            out.data_ptr(), attempted.data_ptr(), HP, WPC, E, A, S, GP, K, out_w, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"obs_tail_v1: kernel launch failed with cudaError_t {err}")
+    out, attempted, obs_tail_v1.last_launch = launch_plans(None, imgp, row0, lane0, gwords, geom, S, out_w)
     obs_tail_v1.launches += 1
     return out, attempted
 
 
+def launch_plans(plans, imgp, row0, lane0, gwords, geom, S: int, out_w: int):
+    """The CUDA kernel on CUDA tensors with the best of ``plans`` (None: every
+    candidate plan of tail_plan, as the wrapper launches it; one plan to time
+    it alone, tools/tail_sweep.py). Returns (words, attempted, the launch's
+    record); counts no launch. Raises where the plans cannot hold the
+    shapes (tail_plan.check_holds)."""
+    check_window_inputs("obs_tail_v1", imgp, row0, lane0, gwords, geom, S, out_w)
+    E, HP, WPC = imgp.shape
+    A = row0.shape[1]
+    G, K = gwords.shape[2], geom.shape[0]
+    if plans is None:
+        plans = tail_plan.candidate_plans("B5", HP, WPC, A, G, K, S, out_w)
+    else:
+        tail_plan.check_holds("B5", plans, HP, WPC, G, S, out_w)
+    if any(p.stages for p in plans) and imgp.data_ptr() % 16:
+        raise ValueError("obs_tail_v1: a staged image must be 16-byte aligned")
+    dev = imgp.device
+    out = torch.empty((E, A, out_w), dtype=torch.int32, device=dev)
+    attempted = torch.empty((E, A), dtype=torch.int32, device=dev)
+    record = launch(_library(), "obs_tail_v1", plans, E, dev, (
+        imgp.data_ptr(), row0.data_ptr(), lane0.data_ptr(), gwords.data_ptr(), geom.data_ptr(),
+        out.data_ptr(), attempted.data_ptr(), HP, WPC, E, A, S, G, K, out_w,
+    ))
+    return out, attempted, record
+
+
 obs_tail_v1.launches = 0
+obs_tail_v1.last_launch = None
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load("obs_tail_v1")
     fn = lib.obs_tail_v1_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

@@ -14,7 +14,8 @@ from the program's static shapes and the caller's ``obs_tail``):
 * an env image built here, in device memory: for maps whose image is too
   large for one block's shared memory (kernel B3, obs_tail_dyn_v2.py, v2
   tail) and for mutable backgrounds off the v2 gate (kernel B5,
-  obs_tail_v1.py, v1 tail);
+  obs_tail_v1.py, v1 tail, which stages each env's image in shared memory
+  where it fits and reads it from device memory otherwise);
 * the non-fused path, for configs no fused tail takes (the AOE mask, or
   window rows wider than 128 lanes): each env's cell image (the pooled map
   plus the agents, or every object) and, with the mask, each cell's winning
@@ -352,8 +353,9 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
     16 rows; the v1 tail (B4, B5) takes the rest whose window rows are at
     most 128 lanes wide (OW * S <= 128). An image fits a block when one env's
     padded image and the candidate tables need at most the 232,448 bytes of
-    shared memory an H100 block may use (MAX_SMEM); B3 and B5 read an image
-    built beforehand from device memory instead.
+    shared memory an H100 block may use (MAX_SMEM); B3 and B5 take an image
+    built beforehand in device memory instead (B5 stages it where its
+    launch plan fits, engine/kernels/tail_plan.py).
 
     obs_buf: optional carried uint8[E, A, T, 3] buffer from the previous
     step or reset. On the v2 and v3 routes (B1-B3, B6a, B6b) token ranks at
@@ -765,6 +767,7 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
     obs_fn.tail_inputs = tail_inputs
     obs_fn.route = route
     # The shapes a tail kernel is planned from (the padded image's, the
-    # global lanes, the window cells and the token slots per cell).
-    obs_fn.tail_shapes = dict(HP=HP_f, WPC=WPC_f, G=GP, K=K, S=S)
+    # global lanes, the window cells and the token slots per cell; on the v3
+    # routes also the paired rows per parity region, HP2).
+    obs_fn.tail_shapes = dict(HP=HP_f, WPC=WPC_f, G=GP, K=K, S=S, **({"HP2": HP2} if v3 else {}))
     return obs_fn

@@ -1,16 +1,18 @@
-"""Kernels B1 and B2 under every launch plan, on a bench variant's live state.
+"""Kernels B1, B2, B5 and B6b under every launch plan, on a bench variant's
+live state.
 
     python -m mettagrid_tpu_torch.tools.tail_sweep [--variant V ...] [--out PATH]
 
-For each variant (flagship and combat take B1, general takes B2; the
-default is all three) steps the main path (4096 envs x 24 agents, a pool of
-64 maps) for 16 steps, then launches its tail kernel under each plan of
-warps per block (4, 8, 12, 16) and stages (1, 2) that fits one block's
-shared memory (engine/kernels/tail_plan.py), holds each launch's words and
-counts equal to the plain version, and times it by CUDA events (the mean
-of 100 launches after one warm-up). Prints one JSON line per plan, marks
-the plan the wrapper picks, and writes the list to --out. Needs a CUDA
-device.
+For each variant (flagship and combat take B1, general takes B2,
+general_lp B5 and arena_mood_v3 B6b; the default is all five) steps the
+main path (4096 envs x 24 agents, a pool of 64 maps) for 16 steps, then
+launches its tail kernel under each plan of warps per block (4, 8, 12, 16)
+and stages that fits one block's shared memory (engine/kernels/tail_plan.py):
+1 or 2 for B1 and B2; 0 (device mode: the image read from device memory),
+1 or 2 for B5 and B6b. It holds each launch's words and counts equal to the
+plain version, and times it by CUDA events (the mean of 100 launches after
+one warm-up). Prints one JSON line per plan, marks the plan the wrapper
+picks, and writes the list to --out. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -21,11 +23,19 @@ from pathlib import Path
 
 import torch
 
-from mettagrid_tpu_torch.engine.kernels import obs_tail_dynobj_v2, obs_tail_static_v2, tail_plan
+from mettagrid_tpu_torch.engine.kernels import obs_tail_dyn_v3, obs_tail_dynobj_v2, obs_tail_static_v2, obs_tail_v1
+from mettagrid_tpu_torch.engine.kernels import tail_plan
 from mettagrid_tpu_torch.tools.bench_run import BenchRun
 
 WARPS = (4, 8, 12, 16)
-STAGES = (1, 2)
+# route -> (module, stage counts)
+KERNELS = {
+    "B1": (obs_tail_static_v2, (1, 2)),
+    "B2": (obs_tail_dynobj_v2, (1, 2)),
+    "B5": (obs_tail_v1, (0, 1, 2)),
+    "B6b": (obs_tail_dyn_v3, (0, 1, 2)),
+}
+VARIANTS = ("flagship", "combat", "general", "general_lp", "arena_mood_v3")
 
 
 def _time_ms(fn, reps: int = 100) -> float:
@@ -44,24 +54,24 @@ def sweep(variant: str) -> list:
     bench = BenchRun(variant, seed=7)
     state, _ = bench.run(*bench.reset(0), 16)
     fn = bench.step.obs_fn
+    kind = fn.route
+    if kind not in KERNELS:
+        raise SystemExit(f"{variant} takes {kind}, not one of {sorted(KERNELS)}")
+    mod, stage_counts = KERNELS[kind]
+    plain = getattr(mod, f"{mod.__name__.rsplit('.', 1)[1]}_ref")
     args = fn.tail_inputs(state)
-    call = dict(out_w=fn.out_w, wide=fn.wide)
-    if fn.route == "B1":
-        kind, mod, plain, N = "B1", obs_tail_static_v2, obs_tail_static_v2.obs_tail_static_v2_ref, 0
-    elif fn.route == "B2":
-        kind, mod, plain = "B2", obs_tail_dynobj_v2, obs_tail_dynobj_v2.obs_tail_dynobj_v2_ref
-        N = args["rext"].shape[1]
-    else:
-        raise SystemExit(f"{variant} takes {fn.route}, not B1 or B2")
+    call = dict(out_w=fn.out_w, **({} if fn.wide is None else {"wide": fn.wide}))
+    sh, A = fn.tail_shapes, bench.program.num_agents
+    HP = args["imgp_l"].shape[1] if kind == "B6b" else sh["HP"]
+    N = args["rext"].shape[1] if kind == "B2" else 0
     ref_words, ref_att = plain(**args, **call)
     fn.tail(**args, **call)
     chosen = fn.tail.last_launch
-    sh, A = fn.tail_shapes, bench.program.num_agents
     rounds = tail_plan.rounds_for(sh["G"], sh["K"], sh["S"])
     rows = []
     for warps in WARPS:
-        for stages in STAGES:
-            smem = tail_plan.smem_bytes(kind, stages, warps, sh["HP"], sh["WPC"], fn.out_w, A, sh["G"], sh["S"], N)
+        for stages in stage_counts:
+            smem = tail_plan.smem_bytes(kind, stages, warps, HP, sh["WPC"], fn.out_w, A, sh["G"], sh["S"], N)
             if smem > tail_plan.MAX_SMEM:
                 continue
             plan = tail_plan.TailPlan(rounds, stages, warps, smem)
@@ -78,7 +88,7 @@ def sweep(variant: str) -> list:
 
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--variant", nargs="+", default=["flagship", "combat", "general"])
+    ap.add_argument("--variant", nargs="+", default=list(VARIANTS))
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

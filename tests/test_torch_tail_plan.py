@@ -1,17 +1,21 @@
-"""The launch plan of the persistent tails B1 and B2
+"""The launch plan of the persistent tails B1, B2, B5 and B6b
 (engine/kernels/tail_plan.py), a function of the shapes, at the bench
 shapes and at the edges it branches on.
 
 At full bench size (24 agents, 25x25 maps; arena_128 on 128x128 maps) the
 obs function is built on the CPU and its route and tail shapes read: the
-route stays B1/B2/B1/B3 for flagship/general/combat/arena_128. Each B1 or
-B2 candidate plan fits one block's shared memory; the plan kept is the one
-that leaves the most warps resident per SM (here counted from shared memory
-alone; the wrapper asks the card, which also counts registers). Images or object tables that fit one stage but not two
-run with one; images that leave no room for the row buffers of WARPS warps
-run with fewer warps. The persistent grid holds every resident block and no
-more blocks than envs. The wrappers refuse rows that are not whole 16-byte
-units.
+route stays B1/B2/B1/B3/B5/B6b for flagship/general/combat/arena_128/
+general_lp/arena_mood_v3. Each candidate plan fits one block's shared
+memory; the plan kept is the one that leaves the most warps resident per SM
+(here counted from shared memory alone; the wrapper asks the card, which
+also counts registers). Images or object tables that fit one stage but not
+two run with one; images that leave no room for the row buffers of WARPS
+warps run with fewer warps. B5 stages its per-env image where it fits and
+reads it from device memory otherwise; B6b reads its paired halves from
+device memory unless staging them leaves two blocks per SM. The persistent
+grid holds every resident block and no more blocks than envs. The wrappers
+refuse rows that are not whole 16-byte units (B1, B2), and B5's and B6b's
+plans refuse shapes they cannot hold, with the reason.
 """
 
 import pytest
@@ -27,32 +31,39 @@ def _smem_blocks_per_sm(plan):
     return 233472 // (plan.smem_bytes + 1024)
 
 
-# variant -> (route, rounds, out_w, stages kept by the shared-memory count)
+# variant -> (route, rounds, out_w, candidate stage counts, stages kept by
+# the shared-memory count); 0 stages: the image read from device memory
 BENCH = {
-    "flagship": ("B1", 12, 256, 1),
-    "general": ("B2", 24, 512, 2),
-    "combat": ("B1", 32, 384, 1),
-    "arena_128": ("B3", 12, 256, None),
+    "flagship": ("B1", 12, 256, [2, 1], 1),
+    "general": ("B2", 24, 512, [2, 1], 2),
+    "combat": ("B1", 32, 384, [2, 1], 1),
+    "arena_128": ("B3", 12, 256, None, None),
+    "general_lp": ("B5", 24, 512, [2, 1], 1),
+    "arena_mood_v3": ("B6b", 16, 384, [0], 0),
 }
 
 
 @pytest.mark.parametrize("variant", sorted(BENCH))
 def test_bench_shapes_plan(variant):
-    route, rounds, out_w, stages = BENCH[variant]
+    route, rounds, out_w, stage_counts, stages = BENCH[variant]
     program, init = bench_run.build_pool(bench_run.make_cfg(variant), 1)
     bg = tobs.build_static_bg(program, init, "cpu") if tobs.static_background_ok(program) else None
-    fn = tobs.make_obs_fn(program, bg, "cpu")
+    fn = tobs.make_obs_fn(program, bg, "cpu", obs_tail=bench_run.variant_options(variant)["obs_tail"])
     assert fn.route == route
-    sh = fn.tail_shapes
+    sh = dict(fn.tail_shapes)
     fits = tobs.staged_smem_bytes(sh["HP"], sh["WPC"], sh["K"], sh["S"]) <= tobs.MAX_SMEM
     assert fits == (route != "B3")
     assert fn.out_w == out_w
     if route == "B3":
         return
+    HP2 = sh.pop("HP2", None)
+    assert (HP2 is not None) == (route == "B6b")
+    if route == "B6b":  # B6b is planned on its paired halves, 2 * HP2 rows each
+        sh["HP"] = 2 * HP2
     N = init.obj_type.shape[1]
     A, G, S = program.num_agents, sh["G"], sh["S"]
     plans = tp.candidate_plans(route, A=A, out_w=fn.out_w, N=N, **sh)
-    assert [p.stages for p in plans] == list(range(tp.STAGES, 0, -1))
+    assert [p.stages for p in plans] == stage_counts
     for p in plans:
         assert p.rounds == rounds == tp.rounds_for(G, sh["K"], S)
         assert 32 * p.rounds >= G + sh["K"] * S
@@ -75,6 +86,53 @@ def test_stages_follow_the_shapes(kind, HP, WPC, N, stages):
     assert all(p.warps == tp.WARPS and p.smem_bytes <= tp.MAX_SMEM for p in plans)
     if stages == [1]:
         assert tp.smem_bytes(kind, 2, 1, HP, WPC, 256, 24, 3, S, N) > tp.MAX_SMEM
+
+
+@pytest.mark.parametrize("kind,HP,WPC,S,G,out_w,stages", [
+    ("B5", 48, 256, 6, 5, 512, [2, 1]),  # general_lp: one or two 48 KB images
+    ("B5", 40, 768, 6, 5, 512, [1]),  # 120 KB: one image fits, two do not
+    ("B5", 144, 512, 6, 5, 512, [0]),  # 288 KB: read from device memory
+    ("B5", 48, 256, 6, 5, 133, [2, 1]),  # rows of 133 words, stored by the warp
+    ("B6b", 64, 256, 4, 3, 384, [0]),  # arena_mood_v3: staged halves leave one block per SM
+    ("B6b", 16, 128, 4, 3, 256, [2, 1]),  # small halves: two blocks per SM staged
+])
+def test_per_env_mode_follows_the_shapes(kind, HP, WPC, S, G, out_w, stages):
+    A, K = 24, 121
+    plans = tp.candidate_plans(kind, HP, WPC, A, G, K, S, out_w)
+    assert [p.stages for p in plans] == stages
+    assert tp.staged_mode(kind, HP, WPC, A, G, S, out_w) == (stages != [0])
+    parts = 2 if kind == "B6b" else 1
+    rows = 12 * 2 * ((out_w + 3) // 4 * 4) * 4
+    for p in plans:
+        assert p.mode == ("device" if p.stages == 0 else "staged")
+        assert p.warps == tp.WARPS and p.rounds == tp.rounds_for(G, K, S)
+        assert p.smem_bytes <= tp.MAX_SMEM
+        tables = p.stages * (parts * HP * WPC * 4 + ((A * (2 + G) + 3) // 4 * 4) * 4)
+        assert p.smem_bytes == rows + (tp.BARRIER_BYTES + tables if p.stages else 0)
+    if stages == [0]:  # the staged plan is refused by its size or its occupancy
+        one = tp.plan_for(kind, 1, HP, WPC, A, G, K, S, out_w)
+        assert one is None or 2 * (one.smem_bytes + tp.BLOCK_RESERVED) > tp.SM_SMEM
+
+
+@pytest.mark.parametrize("kind,HP,WPC,G,out_w,reason", [
+    ("B5", 48, 256, 33, 512, "global words"),  # globals past the first round
+    ("B6b", 64, 256, 40, 384, "global words"),
+    ("B5", 2, 20000, 5, 512, "do not pack"),  # window row offsets past 2^18 words
+    ("B6b", 4, 40000, 3, 384, "do not pack"),
+    ("B5", 48, 256, 5, 30000, "shared memory"),  # one warp's rows do not fit a block
+    ("B6b", 64, 256, 3, 382, "multiple of 4"),  # v2 rows are bulk-stored whole
+])
+def test_plans_that_cannot_hold_the_shapes_raise(kind, HP, WPC, G, out_w, reason):
+    with pytest.raises(ValueError, match=reason):
+        tp.candidate_plans(kind, HP, WPC, 24, G, 121, 1, out_w)
+
+
+def test_staged_plan_refuses_an_image_of_partial_16_byte_units():
+    staged = tp.TailPlan(4, 1, 4, 10000)
+    tp.check_holds("B5", [tp.TailPlan(4, 0, 4, 10000)], 3, 5, 3, 1, 133)  # device mode reads any image
+    with pytest.raises(ValueError, match="16-byte"):
+        tp.check_holds("B5", [staged], 3, 5, 3, 1, 133)
+    assert not tp.staged_mode("B5", 3, 5, 24, 3, 1, 256)
 
 
 def test_choose_keeps_most_resident_warps():
