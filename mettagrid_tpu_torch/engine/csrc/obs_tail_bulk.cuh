@@ -12,9 +12,9 @@
 //   branch-free. The offset follows the image's form (Form): a flat image,
 //   or row-paired halves, where window row u lies in half u & 1 at half row
 //   u >> 1;
-// - the window reads (SmemFlat, SmemPaired, DeviceFlat, DevicePaired): an
-//   image staged in shared memory or read from device memory, flat or as
-//   paired halves. One bounds test per agent: when the whole window lies
+// - the window reads (SmemFlat, DeviceFlat, DevicePaired): a flat image
+//   staged in shared memory, or a flat image or paired halves read from
+//   device memory. One bounds test per agent: when the whole window lies
 //   inside the image the agent takes the unchecked loop (one load per
 //   candidate; from device memory a batch of rounds' loads goes out before
 //   their ballots, so they overlap), else the checked loop of
@@ -26,9 +26,9 @@
 //   compaction of the next (rows that are not whole 16-byte units are
 //   copied out by the warp instead);
 // - the env loops over per-env images (B5, B6b): staged_envs stages each
-//   env's image (one bulk copy, or one per half) onto an mbarrier and its
-//   agent tables by cp.async, the env ahead while the current one runs
-//   where two stages fit; device_envs reads the image from device memory,
+//   env's flat image (one bulk copy) onto an mbarrier and its agent tables
+//   by cp.async, the env ahead while the current one runs where two stages
+//   fit (B5); device_envs reads the image from device memory (B5, B6b),
 //   each warp walking its own agents with their tables loaded two agents
 //   ahead and the next agent's window rows prefetched into L2;
 // - the mbarrier and 1-D bulk copy (TMA) primitives, and the 4-byte
@@ -205,14 +205,13 @@ inline cudaError_t allow_smem(const void* k, int smem, int* allowed) {
 // ---- the candidate plan ----
 
 // How plan entries address a window from its corner: window row u, lane
-// dl lies `u * WPC + dl` words on (flat), or `(u & 1) * half + (u >> 1) *
-// WPC + dl` words on (paired: half `half` words after the left one; 0 where
-// the read picks the half itself), stored shifted left by `shift` (2: byte
-// offsets, for shared memory; 0: word offsets, for device memory).
+// dl lies `u * WPC + dl` words on (flat), or `(u >> 1) * WPC + dl` words on
+// in half u & 1 (paired: the read picks the half by the entry's row), stored
+// shifted left by `shift` (2: byte offsets, for shared memory; 0: word
+// offsets, for device memory).
 struct Form {
   int WPC;
   int paired;
-  int half;
   int shift;
 };
 
@@ -244,7 +243,7 @@ struct Plan {
         const int u = geom[3 * k];
         const int dl = geom[3 * k + 1] * S + (jj - k * S);
         const int loc = geom[3 * k + 2];
-        const int off = (f.paired ? (u & 1) * f.half + (u >> 1) * f.WPC : u * f.WPC) + dl;
+        const int off = (f.paired ? (u >> 1) * f.WPC : u * f.WPC) + dl;
         if (u < 0 || u > 15 || dl < 0 || off >= (int)((kOffMask + 1) >> f.shift) || loc < 0 || loc > 0xFF) {
           printf("obs tail plan: window cell %d (u %d, lane %d, loc %d) does not pack\n", k, u, dl, loc);
           assert(false);
@@ -261,7 +260,7 @@ struct Plan {
 
   // A flat image WPC words wide, staged in shared memory (B1, B2).
   __device__ void build(const int* __restrict__ geom, int G, int K, int S, int WPC) {
-    build(geom, G, K, S, Form{WPC, 0, 0, 2});
+    build(geom, G, K, S, Form{WPC, 0, 2});
   }
 };
 
@@ -280,7 +279,7 @@ struct SmemFlat {
   static constexpr bool kAhead = false;
   const int* img;
   int HP, WPC;
-  __device__ Form form() const { return Form{WPC, 0, 0, 2}; }
+  __device__ Form form() const { return Form{WPC, 0, 2}; }
   __device__ bool inside(int r0, int l0, int rows, int lanes) const {
     return r0 >= 0 && r0 + rows <= HP && l0 >= 0 && l0 + lanes <= WPC;
   }
@@ -302,28 +301,6 @@ __device__ __forceinline__ bool paired_inside(int r0, int l0, int rows, int lane
   return b >= 0 && b + ((rows - 1) >> 1) < 2 * HP2 && l0 >= 0 && l0 + lanes <= WPC;
 }
 
-// The two paired halves, int32 [2*HP2, WPC] each, back to back in shared
-// memory from `left`: the plan's offsets carry the half.
-struct SmemPaired {
-  static constexpr bool kAhead = false;
-  const int* left;
-  int HP2, WPC;
-  __device__ int half() const { return 2 * HP2 * WPC; }
-  __device__ Form form() const { return Form{WPC, 1, half(), 2}; }
-  __device__ bool inside(int r0, int l0, int rows, int lanes) const {
-    return paired_inside(r0, l0, rows, lanes, HP2, WPC);
-  }
-  __device__ uint32_t corner(int r0, int l0) const {
-    return smem_addr(left) + 4u * (unsigned)(paired_base(r0, HP2) * WPC + l0);
-  }
-  __device__ int load(uint32_t c, unsigned en) const { return lds(c + (en & kOffMask)); }
-  __device__ int checked(int r0, int l0, unsigned en) const {
-    const int u = entry_row(en);
-    const int dl = (int)((en & kOffMask) >> 2) - (u & 1) * half() - (u >> 1) * WPC;
-    return obs_tail::PairedImage{left, left + half(), HP2, WPC}(r0, u, l0 + dl);
-  }
-};
-
 // A flat image int32 [HP, WPC] in device memory; `at(e)` is env e's of
 // images laid back to back.
 struct DeviceFlat {
@@ -331,7 +308,7 @@ struct DeviceFlat {
   const int* img;
   int HP, WPC;
   __device__ DeviceFlat at(int e) const { return DeviceFlat{img + (size_t)e * HP * WPC, HP, WPC}; }
-  __device__ Form form() const { return Form{WPC, 0, 0, 0}; }
+  __device__ Form form() const { return Form{WPC, 0, 0}; }
   __device__ bool inside(int r0, int l0, int rows, int lanes) const {
     return r0 >= 0 && r0 + rows <= HP && l0 >= 0 && l0 + lanes <= WPC;
   }
@@ -367,7 +344,7 @@ struct DevicePaired {
     const size_t o = (size_t)e * 2 * HP2 * WPC;
     return DevicePaired{left + o, right + o, HP2, WPC};
   }
-  __device__ Form form() const { return Form{WPC, 1, 0, 0}; }
+  __device__ Form form() const { return Form{WPC, 1, 0}; }
   __device__ bool inside(int r0, int l0, int rows, int lanes) const {
     return paired_inside(r0, l0, rows, lanes, HP2, WPC);
   }
@@ -558,33 +535,28 @@ __device__ inline void stage_runs(int* dst, const Run (&runs)[kParts]) {
 // ---- env loops over per-env images (B5, B6b) ----
 
 // Shared memory of staged_envs (bytes): the mbarriers, per stage the env's
-// image (kParts parts of part_words) and its agent tables, then each warp's
-// two row buffers. tail_plan.smem_bytes computes the same on the host.
+// image and its agent tables, then each warp's two row buffers.
+// tail_plan.smem_bytes computes the same on the host.
 constexpr int kBarrierBytes = 128;
 
 __device__ __forceinline__ int staged_tables_words(int A, int G) { return (A * (2 + G) + 3) & ~3; }
 
-// Persistent blocks over envs e = blockIdx.x, += gridDim.x, each env's image
-// staged in shared memory: kParts = 1, the flat image src0[e] int32
-// [part_rows, WPC]; kParts = 2, the paired halves src0[e] (left) and src1[e]
-// (right), int32 [part_rows = 2*HP2, WPC] each, copied back to back. One
-// thread copies the parts with bulk copies onto the stage's mbarrier,
-// streamed through L2 (each env's image is read once); every thread copies
-// its share of the agent tables (row0, lane0, front [A, G]) with cp.async.
-// With kStages = 2 the env ahead is staged while the current one runs; with
-// one, each env is staged just before its tail. The whole parts must be
-// whole 16-byte units, 16-byte aligned.
-template <int R, int kStages, int kParts, class Pack>
-__device__ inline void staged_envs(const Pack fmt, const int* __restrict__ geom, const int* __restrict__ src0,
-                                   const int* __restrict__ src1, int part_rows, int WPC,
-                                   const int* __restrict__ row0, const int* __restrict__ lane0,
+// Persistent blocks over envs e = blockIdx.x, += gridDim.x, each env's flat
+// image img[e] int32 [HP, WPC] staged in shared memory: one thread copies it
+// with one bulk copy onto the stage's mbarrier, streamed through L2 (each
+// env's image is read once); every thread copies its share of the agent
+// tables (row0, lane0, front [A, G]) with cp.async. With kStages = 2 the env
+// ahead is staged while the current one runs; with one, each env is staged
+// just before its tail. The image must be whole 16-byte units, 16-byte
+// aligned.
+template <int R, int kStages, class Pack>
+__device__ inline void staged_envs(const Pack fmt, const int* __restrict__ geom, const int* __restrict__ img,
+                                   int HP, int WPC, const int* __restrict__ row0, const int* __restrict__ lane0,
                                    const int* __restrict__ front, int* __restrict__ out,
                                    int* __restrict__ attempted, int E, int A, int G, int K, int S, int out_w,
                                    unsigned char* smem) {
-  static_assert(kParts == 1 || kParts == 2, "a flat image or two paired halves");
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  const int n_part = part_rows * WPC;
-  const int n_img = kParts * n_part;
+  const int n_img = HP * WPC;
   const int n_tab = staged_tables_words(A, G);
   int* imgs = reinterpret_cast<int*>(smem + kBarrierBytes);
   int* tabs = imgs + kStages * n_img;
@@ -596,31 +568,21 @@ __device__ inline void staged_envs(const Pack fmt, const int* __restrict__ geom,
     mbar_fence_init();
   }
   __syncthreads();
-  auto read = [&](int s) {
-    if constexpr (kParts == 1) {
-      return SmemFlat{imgs + s * n_img, part_rows, WPC};
-    } else {
-      return SmemPaired{imgs + s * n_img, part_rows / 2, WPC};
-    }
-  };
+  auto read = [&](int s) { return SmemFlat{imgs + s * n_img, HP, WPC}; };
   Plan<R> plan;
   plan.build(geom, G, K, S, read(0).form());
 
   // Every thread: env `env`'s agent tables into stage s with cp.async (one
-  // group); thread 0: its image parts with bulk copies onto bar[s].
+  // group); thread 0: its image with one bulk copy onto bar[s].
   auto stage = [&](int env, int s) {
     const size_t ea0 = (size_t)env * A;
     const Run runs[3] = {{row0 + ea0, A}, {lane0 + ea0, A}, {front + ea0 * G, A * G}};
     stage_runs(tabs + s * n_tab, runs);
     cp_async_commit();
     if (tid == 0) {
-      const uint64_t stream = policy_stream();
       fence_proxy_async();
       mbar_expect_tx(&bar[s], (unsigned)n_img * 4u);
-      bulk_copy(imgs + s * n_img, src0 + (size_t)env * n_part, (unsigned)n_part * 4u, &bar[s], stream);
-      if constexpr (kParts == 2) {
-        bulk_copy(imgs + s * n_img + n_part, src1 + (size_t)env * n_part, (unsigned)n_part * 4u, &bar[s], stream);
-      }
+      bulk_copy(imgs + s * n_img, img + (size_t)env * n_img, (unsigned)n_img * 4u, &bar[s], policy_stream());
     }
   };
   // The first kStages - 1 envs of this block, ahead of the loop.

@@ -23,19 +23,14 @@
 // What the design does about it (obs_tail_bulk.cuh): persistent blocks, the
 // candidate plan in registers in its paired form (window row u's half is
 // bit 0 of the entry's row field, its half row u >> 1), built once per
-// block, branch-free rounds with one bounds test per agent, rows compacted
-// in shared memory and bulk-stored, in one of two modes that the wrapper
-// picks from the shapes (engine/kernels/tail_plan.py):
-// - device (kStages 0): the halves are read from device memory through the
-//   plan, all of an agent's loads sent before its ballots, the next
-//   agent's window rows of both halves prefetched into L2 and its tables
-//   loaded ahead; the warps of a block share the env's rows in L1. Only the
-//   window words are read;
-// - staged halves (kStages 1 or 2): both halves of an env, back to back in
-//   shared memory, arrive by two bulk copies (TMA) onto one mbarrier, the
-//   tables by cp.async; the plan's offsets then carry the half. Each env's
-//   halves are read whole (128 KB at the bench shapes, where one stage
-//   leaves one block per SM).
+// block, branch-free rounds with one bounds test per agent, and rows
+// compacted in shared memory and bulk-stored. The halves are read from
+// device memory through the plan: all of an agent's loads are sent before
+// its ballots, the next agent's window rows of both halves are prefetched
+// into L2 and its tables loaded ahead, and the warps of a block share the
+// env's rows in L1. Only the window words are read. (Staging both halves
+// in shared memory, 128 KB per env at the bench shapes, leaves one block
+// per SM and took twice as long: PERF.md.)
 // No float arithmetic touches a word.
 
 #include <cuda_runtime.h>
@@ -45,7 +40,7 @@
 
 namespace {
 
-template <int R, int kStages>
+template <int R>
 __global__ void __launch_bounds__(512, 2) obs_tail_dyn_v3_kernel(
     const int* __restrict__ imgp_l,  // [E, 2*HP2, WPC]
     const int* __restrict__ imgp_r,  // [E, 2*HP2, WPC]
@@ -56,50 +51,36 @@ __global__ void __launch_bounds__(512, 2) obs_tail_dyn_v3_kernel(
     int* __restrict__ out,           // [E, A, out_w]
     int* __restrict__ attempted,     // [E, A]
     int E, int HP2, int WPC, int A, int S, int G, int K, int out_w) {
-  // Shared memory, staged: the mbarriers (128 bytes), the halves
-  // [kStages][2][2*HP2 * WPC], the agent tables [kStages][A * (2 + G)]
-  // (row0, lane0, gplus; padded to 16 bytes), then each warp's two row
-  // buffers; device: the row buffers alone.
+  // Shared memory: each warp's two row buffers.
   extern __shared__ __align__(128) unsigned char smem[];
   const tail_bulk::V2Pack fmt(0);
-  if constexpr (kStages == 0) {
-    tail_bulk::device_envs<R>(fmt, geom, tail_bulk::DevicePaired{imgp_l, imgp_r, HP2, WPC}, row0, lane0, gplus,
-                              out, attempted, E, A, G, K, S, out_w, smem);
-  } else {
-    tail_bulk::staged_envs<R, kStages, 2>(fmt, geom, imgp_l, imgp_r, 2 * HP2, WPC, row0, lane0, gplus, out,
-                                          attempted, E, A, G, K, S, out_w, smem);
-  }
+  tail_bulk::device_envs<R>(fmt, geom, tail_bulk::DevicePaired{imgp_l, imgp_r, HP2, WPC}, row0, lane0, gplus, out,
+                            attempted, E, A, G, K, S, out_w, smem);
 }
 
 using KernelFn = void (*)(const int*, const int*, const int*, const int*, const int*, const int*, int*, int*, int,
                           int, int, int, int, int, int, int);
 
-// The dynamic shared memory each instance is allowed, by stage count (0:
-// device mode) and round count.
-int allowed_smem[3][33] = {};
+// The dynamic shared memory each instance is allowed, by round count.
+int allowed_smem[33] = {};
 
-template <int kStages>
-KernelFn pick_rounds(int rounds) {
-  switch (rounds) {
-    case 4: return obs_tail_dyn_v3_kernel<4, kStages>;
-    case 8: return obs_tail_dyn_v3_kernel<8, kStages>;
-    case 12: return obs_tail_dyn_v3_kernel<12, kStages>;
-    case 16: return obs_tail_dyn_v3_kernel<16, kStages>;
-    case 24: return obs_tail_dyn_v3_kernel<24, kStages>;
-    case 32: return obs_tail_dyn_v3_kernel<32, kStages>;
-    default: return nullptr;
-  }
-}
-
-// The instance for `rounds` candidate rounds and `stages` (0: device mode),
-// with its dynamic shared memory allowed up to at least `smem` bytes; null
-// for an unknown combination.
+// The instance for `rounds` candidate rounds, with its dynamic shared memory
+// allowed up to at least `smem` bytes; null for an unknown round count, or
+// for `stages` other than 0 (the halves are read from device memory).
 KernelFn instance(int rounds, int stages, int smem, cudaError_t* err) {
-  KernelFn k = stages == 0 ? pick_rounds<0>(rounds)
-               : stages == 1 ? pick_rounds<1>(rounds)
-               : stages == 2 ? pick_rounds<2>(rounds)
-                             : nullptr;
-  *err = k == nullptr ? cudaErrorInvalidValue : tail_bulk::allow_smem((const void*)k, smem, &allowed_smem[stages][rounds]);
+  KernelFn k = nullptr;
+  if (stages == 0) {
+    switch (rounds) {
+      case 4: k = obs_tail_dyn_v3_kernel<4>; break;
+      case 8: k = obs_tail_dyn_v3_kernel<8>; break;
+      case 12: k = obs_tail_dyn_v3_kernel<12>; break;
+      case 16: k = obs_tail_dyn_v3_kernel<16>; break;
+      case 24: k = obs_tail_dyn_v3_kernel<24>; break;
+      case 32: k = obs_tail_dyn_v3_kernel<32>; break;
+      default: break;
+    }
+  }
+  *err = k == nullptr ? cudaErrorInvalidValue : tail_bulk::allow_smem((const void*)k, smem, &allowed_smem[rounds]);
   return k;
 }
 

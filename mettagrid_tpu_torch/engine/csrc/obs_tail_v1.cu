@@ -62,8 +62,8 @@ __global__ void __launch_bounds__(512, 2) obs_tail_v1_kernel(
     tail_bulk::device_envs<R>(fmt, geom, tail_bulk::DeviceFlat{imgp, HP, WPC}, row0, lane0, gwords, out, attempted,
                               E, A, GP, K, S, t_pad, smem);
   } else {
-    tail_bulk::staged_envs<R, kStages, 1>(fmt, geom, imgp, nullptr, HP, WPC, row0, lane0, gwords, out, attempted,
-                                          E, A, GP, K, S, t_pad, smem);
+    tail_bulk::staged_envs<R, kStages>(fmt, geom, imgp, HP, WPC, row0, lane0, gwords, out, attempted, E, A, GP, K,
+                                       S, t_pad, smem);
   }
 }
 

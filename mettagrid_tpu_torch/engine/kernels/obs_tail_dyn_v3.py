@@ -15,9 +15,8 @@ where ``base = (r & 1) * HP2 + (r >> 1)``.
 
 ``obs_tail_dyn_v3`` launches the kernel for CUDA tensors and takes the plain
 PyTorch version ``obs_tail_dyn_v3_ref`` for CPU tensors. The launch
-(persistent blocks, warps per block, the halves read from device memory or
-staged in shared memory) is planned from the shapes by ``tail_plan``. Both
-compute B3's
+(persistent blocks, warps per block; the halves are read from device
+memory) is planned from the shapes by ``tail_plan``. Both compute B3's
 words (``obs_tail_static_v2.v2_words_ref``) through those paired reads: per
 agent the G global words, the window at ``(row0 + u_k, lane0 + v_k*S + s)``
 in Manhattan order (``geom``; cells outside the image read as empty),
@@ -114,8 +113,6 @@ def launch_plans(plans, imgp_l, imgp_r, row0, lane0, gplus, geom, S: int, out_w:
         plans = tail_plan.candidate_plans("B6b", HP2x2, WPC, A, G, K, S, out_w)
     else:
         tail_plan.check_holds("B6b", plans, HP2x2, WPC, G, S, out_w)
-    if any(p.stages for p in plans) and (imgp_l.data_ptr() % 16 or imgp_r.data_ptr() % 16):
-        raise ValueError("obs_tail_dyn_v3: staged halves must be 16-byte aligned")
     dev = imgp_l.device
     out = torch.empty((E, A, out_w), dtype=torch.int32, device=dev)
     attempted = torch.empty((E, A), dtype=torch.int32, device=dev)

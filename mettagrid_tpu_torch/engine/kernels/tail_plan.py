@@ -9,21 +9,22 @@ memory, and each lane holds ``rounds`` candidate entries in registers (a
 compiled bucket at or above ceil((G + K*S) / 32)). With ``stages`` > 1 a
 block stages the env ``stages`` - 1 envs ahead while it runs the current
 one: B1 its image (bulk copy) and agent tables (cp.async), B2 its object
-and agent tables, B5 and B6b their per-env image (B6b both paired halves)
-and agent tables; with one stage B1, B5 and B6b stage each env just before
-its tail and B2 reads the tables from device memory. B1, B5 and B6b keep
-128 bytes of mbarriers ahead of their images. ``stages`` = 0 is B5's and
-B6b's device mode: the image is read from device memory, and shared memory
-holds the row buffers alone.
+and agent tables, B5 its per-env image and agent tables; with one stage B1
+and B5 stage each env just before its tail and B2 reads the tables from
+device memory. B1 and B5 keep 128 bytes of mbarriers ahead of their images.
+``stages`` = 0 is the device mode of B5 and B6b: the image (B6b: its paired
+halves, always) is read from device memory, and shared memory holds the row
+buffers alone.
 
-The mode follows the shapes: B5 stages its image wherever a staged plan
-fits one block's shared memory (and the image is whole 16-byte units), else
-reads it from device memory; B6b reads its halves from device memory unless
-a one-stage staged plan leaves two blocks resident per SM. The plan takes
-the most stages and warps that fit one block's shared memory, then keeps
-the candidate that leaves the most warps resident per SM; the obs route
-(obs.tail_route) never depends on it: it gates on one image and the
-candidate tables (staged_smem_bytes).
+For each kind, candidate_plans gives the plan with the most warps that fits
+one block's shared memory at each of its stage counts (STAGE_COUNTS), less
+the plans that cannot hold the shapes, and for B5 the device plan only where
+no staged plan is left: staging beat the device mode on the card wherever
+it fit, at one block per SM too (PERF.md). choose keeps the candidate that
+leaves the most warps resident per SM (the wrappers ask the card), the one
+with the most stages on a tie. The obs route (obs.tail_route) never depends
+on the plan: it gates on one image and the candidate tables
+(staged_smem_bytes).
 """
 
 from __future__ import annotations
@@ -38,21 +39,16 @@ ROUND_BUCKETS = (4, 8, 12, 16, 24, 32)
 # for at most 16).
 WARPS = 12
 MAX_WARPS = 16
-# Pipeline stages the kernels are compiled for: one or two (a deeper
-# pipeline did not pay on the bench shapes).
-STAGES = 2
-# The mbarriers of B1, B5 and B6b, ahead of their image buffers.
+# Stage counts each kernel is compiled for, most first: one or two (a
+# deeper pipeline did not pay on the bench shapes), and 0 for the device mode
+# of B5 and B6b.
+STAGE_COUNTS = {"B1": (2, 1), "B2": (2, 1), "B5": (2, 1, 0), "B6b": (0,)}
+# The mbarriers of B1 and B5, ahead of their image buffers.
 BARRIER_BYTES = 128
-# Shared memory of one H100 SM, and what each resident block reserves of it
-# (bytes).
-SM_SMEM = 233472
-BLOCK_RESERVED = 1024
 # A plan entry's offset field: offsets below 2^18, in bytes for an image in
 # shared memory and in words for one in device memory (obs_tail_bulk.cuh
 # Plan).
 OFFSET_LIMIT = 1 << 18
-# Kinds over per-env images, with staged and device modes.
-PER_ENV = ("B5", "B6b")
 
 
 class TailPlan(NamedTuple):
@@ -88,55 +84,64 @@ def smem_bytes(kind: str, stages: int, warps: int, HP: int, WPC: int, out_w: int
     mbarriers, and per stage an image and an env's agent tables (row0,
     lane0, rext, lext, words, gplus), or B2's image and, with more than one
     stage, per stage an env's tables (rext, lext, words, row0, lane0,
-    gplus); staged B5 and B6b the mbarriers and per stage the env's image
-    (B6b: two halves of HP rows each) and agent tables (row0, lane0,
-    globals); then every kernel's row buffers, two of out_w words (rounded
-    up to 16 bytes) per warp, which are all that device-mode B5 and B6b
-    (stages = 0) hold."""
+    gplus); staged B5 the mbarriers and per stage the env's image and agent
+    tables (row0, lane0, globals); then every kernel's row buffers, two of
+    out_w words (rounded up to 16 bytes) per warp, which are all that B5
+    and B6b hold in device mode (stages = 0)."""
     img = HP * WPC * 4
     rows = warps * 2 * _pad4(out_w) * 4
     if kind == "B1":
         return BARRIER_BYTES + stages * (img + _pad4(A * (4 + S + G)) * 4) + rows
     if kind == "B2":
         return img + rows + (stages * _pad4(N * (2 + S) + A * (2 + G)) * 4 if stages > 1 else 0)
-    if kind in PER_ENV:
-        parts = 2 if kind == "B6b" else 1
-        return BARRIER_BYTES + stages * (parts * img + _pad4(A * (2 + G)) * 4) + rows if stages else rows
+    if kind == "B5":
+        return BARRIER_BYTES + stages * (img + _pad4(A * (2 + G)) * 4) + rows if stages else rows
+    if kind == "B6b":
+        if stages:
+            raise ValueError("B6b reads its halves from device memory (stages 0)")
+        return rows
     raise ValueError(f"unknown tail kind {kind!r}")
 
 
-def max_offset(kind: str, stages: int, HP: int, WPC: int, S: int) -> int:
+def max_offset(kind: str, stages: int, WPC: int, S: int) -> int:
     """The largest plan offset any window of the location byte's span (rows
     and cells 0-15) can take in kind's image, in the unit of the mode
     (bytes staged, words in device memory): a flat image's row u lies u*WPC
-    words from the corner, a paired half's u >> 1 rows (staged B6b adds the
-    left half's HP*WPC words for the right one)."""
+    words from the corner, a paired half's u >> 1 rows."""
     lanes = 16 * S - 1
-    if kind == "B6b":
-        words = (7 * WPC + lanes) + (HP * WPC if stages else 0)
-    else:
-        words = 15 * WPC + lanes
+    words = (7 if kind == "B6b" else 15) * WPC + lanes
     return words * 4 if stages else words
 
 
-def check_holds(kind: str, plans, HP: int, WPC: int, G: int, S: int, out_w: int) -> None:
-    """Raises, with its reason, where B5's or B6b's ``plans`` cannot hold the
-    shapes: more than 32 globals (every global lies in the first round of
-    candidates), B6b rows that are not whole 16-byte units (its v2 rows are
-    bulk-stored; B5's v1 rows of any width are not), window offsets that
-    may not pack in a plan entry, or a staged image that is not whole
-    16-byte units."""
+def refusal(kind: str, plan: "TailPlan", HP: int, WPC: int, G: int, S: int, out_w: int):
+    """Why B5's or B6b's ``plan`` cannot hold the shapes, or None where it
+    can: a staged B6b plan (B6b has the device mode alone), more than 32
+    globals (every global lies in the first round of candidates), B6b rows
+    that are not whole 16-byte units (its v2 rows are bulk-stored; B5's v1
+    rows of any width are not), window offsets that do not pack in a plan
+    entry, or a staged image that is not whole 16-byte units."""
+    if kind == "B6b" and plan.stages:
+        return f"{kind}: reads its halves from device memory (stages 0, not {plan.stages})"
     if G > 32:
-        raise ValueError(f"{kind}: {G} global words (at most 32)")
+        return f"{kind}: {G} global words (at most 32)"
     if kind == "B6b" and out_w % 4:
-        raise ValueError(f"{kind}: out_w = {out_w} is not a multiple of 4 (rows are stored in 16-byte units)")
+        return f"{kind}: out_w = {out_w} is not a multiple of 4 (rows are stored in 16-byte units)"
+    if max_offset(kind, plan.stages, WPC, S) >= OFFSET_LIMIT:
+        unit = "bytes" if plan.stages else "words"
+        return (f"{kind}: window offsets of up to {max_offset(kind, plan.stages, WPC, S)} {unit} "
+                f"({plan.mode} mode, WPC {WPC}) do not pack below {OFFSET_LIMIT}")
+    if plan.stages and (HP * WPC) % 4:
+        return f"{kind}: a staged image of {HP}x{WPC} words is not whole 16-byte units"
+    return None
+
+
+def check_holds(kind: str, plans, HP: int, WPC: int, G: int, S: int, out_w: int) -> None:
+    """Raises, with its reason, where one of B5's or B6b's ``plans`` cannot
+    hold the shapes (refusal)."""
     for p in plans:
-        if max_offset(kind, p.stages, HP, WPC, S) >= OFFSET_LIMIT:
-            unit = "bytes" if p.stages else "words"
-            raise ValueError(f"{kind}: window offsets of up to {max_offset(kind, p.stages, HP, WPC, S)} {unit} "
-                             f"({p.mode} mode, WPC {WPC}) do not pack below {OFFSET_LIMIT}")
-        if p.stages and (HP * WPC) % 4:
-            raise ValueError(f"{kind}: a staged image of {HP}x{WPC} words is not whole 16-byte units")
+        why = refusal(kind, p, HP, WPC, G, S, out_w)
+        if why:
+            raise ValueError(why)
 
 
 def plan_for(kind: str, stages: int, HP: int, WPC: int, A: int, G: int, K: int, S: int, out_w: int, N: int = 0,
@@ -154,38 +159,27 @@ def plan_for(kind: str, stages: int, HP: int, WPC: int, A: int, G: int, K: int, 
 
 def candidate_plans(kind: str, HP: int, WPC: int, A: int, G: int, K: int, S: int, out_w: int, N: int = 0,
                     max_smem: int = None) -> list:
-    """For each stage count from STAGES down to 1, the plan with the most
-    warps that fits (plan_for), where one does; for B5 and B6b in device
-    mode (not staged_mode) the one device plan. For B6b, HP is the rows of
-    each paired half."""
+    """For each of kind's stage counts (STAGE_COUNTS), the plan with the
+    most warps that fits (plan_for), where one does and, for B5 and B6b,
+    where it can hold the shapes (refusal); B5's device plan only where no
+    staged plan is left. Raises with the reasons where no plan is left. For
+    B6b, HP is the rows of each paired half."""
     max_smem = MAX_SMEM if max_smem is None else max_smem
-    if kind in PER_ENV and not staged_mode(kind, HP, WPC, A, G, S, out_w, max_smem):
-        stage_counts = (0,)
-    else:
-        stage_counts = range(STAGES, 0, -1)
-    plans = [p for p in (plan_for(kind, st, HP, WPC, A, G, K, S, out_w, N, max_smem) for st in stage_counts) if p]
+    plans = [p for p in (plan_for(kind, st, HP, WPC, A, G, K, S, out_w, N, max_smem) for st in STAGE_COUNTS[kind])
+             if p]
     if not plans:
-        raise ValueError(f"{kind}: one image of {HP}x{WPC} words and one warp's rows of {out_w} words need "
-                         f"{smem_bytes(kind, 1, 1, HP, WPC, out_w, A, G, S, N)} bytes of shared memory (> {max_smem})")
-    if kind in PER_ENV:
-        check_holds(kind, plans, HP, WPC, G, S, out_w)
+        least = STAGE_COUNTS[kind][-1]
+        raise ValueError(f"{kind}: {least} stage(s) of a {HP}x{WPC} image and one warp's rows of {out_w} words need "
+                         f"{smem_bytes(kind, least, 1, HP, WPC, out_w, A, G, S, N)} bytes of shared memory "
+                         f"(> {max_smem})")
+    if kind in ("B5", "B6b"):
+        why = {p: refusal(kind, p, HP, WPC, G, S, out_w) for p in plans}
+        if all(why.values()):
+            raise ValueError("; ".join(dict.fromkeys(why.values())))
+        plans = [p for p in plans if not why[p]]
+    if any(p.stages for p in plans):
+        plans = [p for p in plans if p.stages]
     return plans
-
-
-def staged_mode(kind: str, HP: int, WPC: int, A: int, G: int, S: int, out_w: int, max_smem: int = None) -> bool:
-    """Whether B5 or B6b stages its per-env image for these shapes: the
-    image must be whole 16-byte units with window offsets that pack in
-    bytes; B5 then stages wherever one stage of one warp fits a block, B6b
-    only where one stage of min(A, WARPS) warps leaves two blocks resident
-    per SM (staging reads the whole of both halves, the device mode only
-    the window words)."""
-    max_smem = MAX_SMEM if max_smem is None else max_smem
-    if (HP * WPC) % 4 or max_offset(kind, 1, HP, WPC, S) >= OFFSET_LIMIT:
-        return False
-    if kind == "B5":
-        return smem_bytes(kind, 1, 1, HP, WPC, out_w, A, G, S) <= max_smem
-    need = smem_bytes(kind, 1, max(1, min(A, WARPS)), HP, WPC, out_w, A, G, S)
-    return need <= max_smem and 2 * (need + BLOCK_RESERVED) <= SM_SMEM
 
 
 def choose(plans: list, blocks_per_sm: Callable) -> TailPlan:

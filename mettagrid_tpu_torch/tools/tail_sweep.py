@@ -9,7 +9,7 @@ main path (4096 envs x 24 agents, a pool of 64 maps) for 16 steps, then
 launches its tail kernel under each plan of warps per block (4, 8, 12, 16)
 and stages that fits one block's shared memory (engine/kernels/tail_plan.py):
 1 or 2 for B1 and B2; 0 (device mode: the image read from device memory),
-1 or 2 for B5 and B6b. It holds each launch's words and counts equal to the
+1 or 2 for B5; 0 for B6b. It holds each launch's words and counts equal to the
 plain version, and times it by CUDA events (the mean of 100 launches after
 one warm-up). Prints one JSON line per plan, marks the plan the wrapper
 picks, and writes the list to --out. Needs a CUDA device.
@@ -28,13 +28,8 @@ from mettagrid_tpu_torch.engine.kernels import tail_plan
 from mettagrid_tpu_torch.tools.bench_run import BenchRun
 
 WARPS = (4, 8, 12, 16)
-# route -> (module, stage counts)
-KERNELS = {
-    "B1": (obs_tail_static_v2, (1, 2)),
-    "B2": (obs_tail_dynobj_v2, (1, 2)),
-    "B5": (obs_tail_v1, (0, 1, 2)),
-    "B6b": (obs_tail_dyn_v3, (0, 1, 2)),
-}
+# route -> module
+KERNELS = {"B1": obs_tail_static_v2, "B2": obs_tail_dynobj_v2, "B5": obs_tail_v1, "B6b": obs_tail_dyn_v3}
 VARIANTS = ("flagship", "combat", "general", "general_lp", "arena_mood_v3")
 
 
@@ -57,7 +52,7 @@ def sweep(variant: str) -> list:
     kind = fn.route
     if kind not in KERNELS:
         raise SystemExit(f"{variant} takes {kind}, not one of {sorted(KERNELS)}")
-    mod, stage_counts = KERNELS[kind]
+    mod = KERNELS[kind]
     plain = getattr(mod, f"{mod.__name__.rsplit('.', 1)[1]}_ref")
     args = fn.tail_inputs(state)
     call = dict(out_w=fn.out_w, **({} if fn.wide is None else {"wide": fn.wide}))
@@ -70,7 +65,7 @@ def sweep(variant: str) -> list:
     rounds = tail_plan.rounds_for(sh["G"], sh["K"], sh["S"])
     rows = []
     for warps in WARPS:
-        for stages in stage_counts:
+        for stages in tail_plan.STAGE_COUNTS[kind]:
             smem = tail_plan.smem_bytes(kind, stages, warps, HP, sh["WPC"], fn.out_w, A, sh["G"], sh["S"], N)
             if smem > tail_plan.MAX_SMEM:
                 continue

@@ -8,14 +8,15 @@ route stays B1/B2/B1/B3/B5/B6b for flagship/general/combat/arena_128/
 general_lp/arena_mood_v3. Each candidate plan fits one block's shared
 memory; the plan kept is the one that leaves the most warps resident per SM
 (here counted from shared memory alone; the wrapper asks the card, which
-also counts registers). Images or object tables that fit one stage but not
-two run with one; images that leave no room for the row buffers of WARPS
-warps run with fewer warps. B5 stages its per-env image where it fits and
-reads it from device memory otherwise; B6b reads its paired halves from
-device memory unless staging them leaves two blocks per SM. The persistent
-grid holds every resident block and no more blocks than envs. The wrappers
-refuse rows that are not whole 16-byte units (B1, B2), and B5's and B6b's
-plans refuse shapes they cannot hold, with the reason.
+also counts registers), the one with the most stages on a tie. Images or
+object tables that fit one stage but not two run with one; images that
+leave no room for the row buffers of WARPS warps run with fewer warps. B5
+stages its per-env image wherever a staged plan fits and holds, and reads
+it from device memory otherwise; B6b reads its paired halves from device
+memory at every size. The persistent grid holds
+every resident block and no more blocks than envs. The wrappers refuse
+rows that are not whole 16-byte units (B1, B2), and B5's and B6b's plans
+refuse shapes they cannot hold, with the reason.
 """
 
 import pytest
@@ -88,30 +89,35 @@ def test_stages_follow_the_shapes(kind, HP, WPC, N, stages):
         assert tp.smem_bytes(kind, 2, 1, HP, WPC, 256, 24, 3, S, N) > tp.MAX_SMEM
 
 
-@pytest.mark.parametrize("kind,HP,WPC,S,G,out_w,stages", [
-    ("B5", 48, 256, 6, 5, 512, [2, 1]),  # general_lp: one or two 48 KB images
-    ("B5", 40, 768, 6, 5, 512, [1]),  # 120 KB: one image fits, two do not
-    ("B5", 144, 512, 6, 5, 512, [0]),  # 288 KB: read from device memory
-    ("B5", 48, 256, 6, 5, 133, [2, 1]),  # rows of 133 words, stored by the warp
-    ("B6b", 64, 256, 4, 3, 384, [0]),  # arena_mood_v3: staged halves leave one block per SM
-    ("B6b", 16, 128, 4, 3, 256, [2, 1]),  # small halves: two blocks per SM staged
+@pytest.mark.parametrize("kind,HP,WPC,S,G,out_w,stages,kept", [
+    ("B5", 48, 256, 6, 5, 512, [2, 1], 1),  # general_lp: one or two 48 KB images
+    ("B5", 40, 768, 6, 5, 512, [1], 1),  # 120 KB: one image fits (one block per SM), two do not
+    ("B5", 144, 512, 6, 5, 512, [0], 0),  # 288 KB: read from device memory
+    ("B5", 48, 256, 6, 5, 133, [2, 1], 1),  # rows of 133 words, stored by the warp
+    ("B6b", 64, 256, 4, 3, 384, [0], 0),  # arena_mood_v3
+    ("B6b", 16, 128, 4, 3, 256, [0], 0),  # small halves: still read from device memory
 ])
-def test_per_env_mode_follows_the_shapes(kind, HP, WPC, S, G, out_w, stages):
+def test_per_env_mode_follows_the_shapes(kind, HP, WPC, S, G, out_w, stages, kept):
     A, K = 24, 121
     plans = tp.candidate_plans(kind, HP, WPC, A, G, K, S, out_w)
     assert [p.stages for p in plans] == stages
-    assert tp.staged_mode(kind, HP, WPC, A, G, S, out_w) == (stages != [0])
-    parts = 2 if kind == "B6b" else 1
     rows = 12 * 2 * ((out_w + 3) // 4 * 4) * 4
     for p in plans:
         assert p.mode == ("device" if p.stages == 0 else "staged")
         assert p.warps == tp.WARPS and p.rounds == tp.rounds_for(G, K, S)
         assert p.smem_bytes <= tp.MAX_SMEM
-        tables = p.stages * (parts * HP * WPC * 4 + ((A * (2 + G) + 3) // 4 * 4) * 4)
+        tables = p.stages * (HP * WPC * 4 + ((A * (2 + G) + 3) // 4 * 4) * 4)
         assert p.smem_bytes == rows + (tp.BARRIER_BYTES + tables if p.stages else 0)
-    if stages == [0]:  # the staged plan is refused by its size or its occupancy
-        one = tp.plan_for(kind, 1, HP, WPC, A, G, K, S, out_w)
-        assert one is None or 2 * (one.smem_bytes + tp.BLOCK_RESERVED) > tp.SM_SMEM
+    assert tp.choose(plans, _smem_blocks_per_sm).stages == kept
+    if kind == "B6b":  # no staged plan exists
+        with pytest.raises(ValueError, match="device memory"):
+            tp.smem_bytes(kind, 1, 12, HP, WPC, out_w, A, G, S)
+        with pytest.raises(ValueError, match="device memory"):
+            tp.check_holds(kind, [tp.TailPlan(plans[0].rounds, 1, 12, 1000)], HP, WPC, G, S, out_w)
+    elif stages == [0]:  # the image cannot be staged
+        assert tp.plan_for(kind, 1, HP, WPC, A, G, K, S, out_w) is None
+    else:  # the device plan fits too, but staging is kept
+        assert tp.plan_for(kind, 0, HP, WPC, A, G, K, S, out_w) is not None
 
 
 @pytest.mark.parametrize("kind,HP,WPC,G,out_w,reason", [
@@ -132,7 +138,7 @@ def test_staged_plan_refuses_an_image_of_partial_16_byte_units():
     tp.check_holds("B5", [tp.TailPlan(4, 0, 4, 10000)], 3, 5, 3, 1, 133)  # device mode reads any image
     with pytest.raises(ValueError, match="16-byte"):
         tp.check_holds("B5", [staged], 3, 5, 3, 1, 133)
-    assert not tp.staged_mode("B5", 3, 5, 24, 3, 1, 256)
+    assert [p.stages for p in tp.candidate_plans("B5", 3, 5, 24, 3, 1, 1, 256)] == [0]
 
 
 def test_choose_keeps_most_resident_warps():
