@@ -13,7 +13,10 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
    a pool of 64 maps, 4096 envs) for 16 steps, feeds kernel B1 the inputs of
    the live state, and holds its words and attempted counts equal to the
    plain PyTorch version on the card, for normal and wide packing; times both
-   with CUDA events;
+   with CUDA events (a kernel's time with its launches queued behind a spin
+   kernel, so that the card runs them back to back and the time is the
+   card's, beside its wrapper's time per call issued back to back, which is
+   the host's rate where the host is the slower);
 4. main path: resets and steps the flagship with auto-reset, carrying the
    observation buffer (8 warm-up, 64 timed steps); checks that B1 launched
    once per observation pass and no other tail kernel launched, that no
@@ -102,7 +105,26 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
     absent a third of the time (B5), windows starting on even and on odd
     image rows over halves that are not any image's pairing (B6b), a B5
     image that stages at one block per SM, and one too large to stage;
-    prints each launch's plan and its time by CUDA events.
+    prints each launch's plan and its time by CUDA events;
+23. B3 and B6a against their plain versions on seeded synthetic inputs,
+    word for word (B3: its image read from device memory, normal and wide
+    packing; B6a: its halves staged, one stage), at 1, 7, 133 and 4099
+    envs, with windows crossing the image edge, an out_w below the valid
+    count, B3 at the arena_128 image with 3, 4 and 6 token slots (12, 16
+    and 23 rounds, those past 12 from shared memory), and B6a windows
+    starting on even and odd image rows over halves that are not any
+    image's pairing, 64x128 and 64x256; prints each launch's plan and
+    time;
+24. the launch limits: the GPU path against the CPU path on the general
+    config with token values in base 10 (9 token slots per cell, 1092
+    candidates: B5 at 35 rounds, 23 of them from shared memory; 64 envs,
+    pool 3, 24 steps, every output and state field but rng byte-equal); B1,
+    B2, B3, B5, B6a and B6b against their plain versions at the largest
+    candidate count the fused route admits (32 globals and 15 window rows
+    of 128 lanes: 1952 candidates, 61 rounds) and at one less (a partial
+    last round), in every mode; and images at
+    the shared-memory edge, routed by the route gate (obs.gate_route) to a
+    kernel with a plan and launched.
 
 Every phase asserts. The line before the last is the kernels' JSON record;
 the last line is {"ok": true, "device": {...}}. With no CUDA device, or
@@ -113,6 +135,7 @@ result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -146,18 +169,31 @@ def _card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def _time_ms(torch, fn, reps: int) -> float:
-    """Mean milliseconds per call on the card, by CUDA events, after warm-up."""
+def _time_ms(torch, fn, reps: int, queued: bool = False) -> float:
+    """Mean milliseconds per call on the card, by CUDA events, after warm-up.
+    Calls issued back to back run at the host's rate where it issues a call
+    more slowly than the card runs it, so with ``queued`` a spin kernel
+    holds the stream until the host has issued all ``reps`` calls (longer
+    spins until it has): they then run back to back on the card, and the
+    time is the card's alone."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    cycles = 20_000_000  # about 10 ms at the H100's clock
+    for _ in range(5):
+        if queued:
+            torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()  # the spin still held the stream after the last call was issued
+        torch.cuda.synchronize()
+        if held or not queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise RuntimeError("the host did not issue the calls within the longest spin")
 
 
 def _wrappers():
@@ -230,7 +266,8 @@ def _tail_record(torch, obs_fn, state):
         err = max(err, int((kw_.long() - rw.long()).abs().max()), int((ka.long() - ra.long()).abs().max()))
     assert int(ka.min()) > 0
     call = dict(out_w=obs_fn.out_w, **({} if obs_fn.wide is None else {"wide": obs_fn.wide}))
-    kernel_ms = _time_ms(torch, lambda: kernel(**args, **call), 50)
+    kernel_ms = _time_ms(torch, lambda: kernel(**args, **call), 50, queued=True)
+    call_ms = _time_ms(torch, lambda: kernel(**args, **call), 50)
     plain_ms = _time_ms(torch, lambda: plain(**args, **call), 5)
 
     tensors = {k: v for k, v in args.items() if isinstance(v, torch.Tensor)}
@@ -248,7 +285,13 @@ def _tail_record(torch, obs_fn, state):
     # (per agent word and half for B6a's).
     adds = {"obs_tail_dynobj_v2": 1, "obs_tail_static_v3": 2}.get(name, 0)
     ops = E * A * (front.shape[2] + K * S) + adds * (args["words"].numel() if adds else 0)
-    return _record(name, err, kernel_ms, plain_ms, bytes_in + bytes_out, ops)
+    return _record(name, err, kernel_ms, call_ms, plain_ms, bytes_in + bytes_out, ops)
+
+
+def _times(rec: dict) -> str:
+    """A kernel's record (_record) as text: its times and bound."""
+    return (f"kernel {rec['ms']:.4f} ms ({rec['call_ms']:.4f} per call back to back), plain {rec['plain_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
 def _plan_note(kernel) -> str:
@@ -258,10 +301,14 @@ def _plan_note(kernel) -> str:
             f"{p['stages']} stage(s), {p['smem_bytes']} bytes of shared memory, {p['registers']} registers")
 
 
-def _record(name: str, err: int, kernel_ms: float, plain_ms: float, bytes_moved: int, ops: int) -> dict:
-    """A kernel's entry of the kernels line; the bound is the larger of the
-    bytes over the card's memory rate and the operations over its scalar
-    rate. No single PyTorch call computes any of these functions."""
+def _record(name: str, err: int, kernel_ms: float, call_ms: float, plain_ms: float, bytes_moved: int,
+            ops: int) -> dict:
+    """A kernel's entry of the kernels line: ``ms`` the card's time per
+    launch (queued launches), ``call_ms`` the wrapper's time per call issued
+    back to back (the host's rate where it is the slower); the bound is the
+    larger of the bytes over the card's memory rate and the operations over
+    its scalar rate. No single PyTorch call computes any of these
+    functions."""
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     return {
@@ -273,6 +320,7 @@ def _record(name: str, err: int, kernel_ms: float, plain_ms: float, bytes_moved:
         "equal": True,
         "max_abs_err": err,
         "ms": kernel_ms,
+        "call_ms": call_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -288,9 +336,10 @@ def _kernel_record(torch, name: str, args: dict, bytes_moved: int, ops: int) -> 
     torch.cuda.synchronize()
     assert torch.equal(got, ref), f"{_KERNELS[name][1]} differs from its plain version"
     err = int((got.long() - ref.long()).abs().max())
-    kernel_ms = _time_ms(torch, lambda: kernel(**args), 50)
+    kernel_ms = _time_ms(torch, lambda: kernel(**args), 50, queued=True)
+    call_ms = _time_ms(torch, lambda: kernel(**args), 50)
     plain_ms = _time_ms(torch, lambda: plain(**args), 5)
-    return _record(name, err, kernel_ms, plain_ms, bytes_moved, ops)
+    return _record(name, err, kernel_ms, call_ms, plain_ms, bytes_moved, ops)
 
 
 def _timed_path(torch, bench, n_timed: int, *kernels):
@@ -328,9 +377,8 @@ def _main_path(torch, card: str):
     # --- phase 3: kernel vs plain on the live state after 16 steps ---
     state, out = flagship.run(*flagship.reset(0), 16)
     record = _tail_record(torch, flagship.step.obs_fn, state)
-    print(f"[3] B1 equal to its plain version (normal and wide packing): kernel {record['ms']:.4f} ms, "
-          f"plain {record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms; {_plan_note(obs_tail_static_v2)}",
-          flush=True)
+    print(f"[3] B1 equal to its plain version (normal and wide packing): "
+          f"{_times(record)}; {_plan_note(obs_tail_static_v2)}", flush=True)
 
     # --- phase 4: the main path, counts from 0 ---
     n_timed = 64
@@ -439,8 +487,7 @@ def _general_paths(torch, card: str):
     assert float(state.game_stats[:, event_stat].min()) >= 4, "the event did not fire at steps 4 and 20"
     record = _tail_record(torch, general.step.obs_fn, state)
     print(f"[6] B2 equal to its plain version (normal and wide packing) on the general state after 24 steps: "
-          f"kernel {record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms; "
-          f"{_plan_note(obs_tail_dynobj_v2)}", flush=True)
+          f"{_times(record)}; {_plan_note(obs_tail_dynobj_v2)}", flush=True)
 
     # --- phase 7: the general main path, counts from 0 ---
     n_timed = 32
@@ -466,9 +513,8 @@ def _general_paths(torch, card: str):
           f"steps) on {card}; B1 launches with wide packing {wide_launches}; hearts lost to attacks {hearts_lost}",
           flush=True)
     wide = _tail_record(torch, combat.step.obs_fn, state)
-    print(f"[8] B1 equal to its plain version (normal and wide packing) on the combat state: kernel (wide) "
-          f"{wide['ms']:.4f} ms, plain {wide['plain_ms']:.4f} ms, bound {wide['bound_ms']:.4f} ms; "
-          f"{_plan_note(obs_tail_static_v2)}", flush=True)
+    print(f"[8] B1 equal to its plain version (normal and wide packing) on the combat state, timed wide: "
+          f"{_times(wide)}; {_plan_note(obs_tail_static_v2)}", flush=True)
     return record
 
 
@@ -491,8 +537,7 @@ def _new_route(torch, card: str, phase: int, variant: str, kernel, check=None):
     record = _tail_record(torch, fn, state)
     del state, out
     print(f"[{phase}] {label} equal to its plain version on the {variant} state after 12 steps "
-          f"({off_spawn:.2f} of agents off their spawn cell): kernel {record['ms']:.4f} ms, "
-          f"plain {record['plain_ms']:.4f} ms, bound {record['bound_ms']:.4f} ms ({record['bound_by']})"
+          f"({off_spawn:.2f} of agents off their spawn cell): {_times(record)}"
           f"{f'; {_plan_note(kernel)}' if getattr(kernel, 'last_launch', None) else ''}", flush=True)
     n_timed = 32
     torch.cuda.reset_peak_memory_stats()
@@ -546,8 +591,7 @@ def _tithe_path(torch, card: str):
           f"{paid}; shrines hold {shrine_hearts} hearts; {draws} distinct twin cursors; peak device memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
     print(f"[19] {label} equal to its plain version (normal and wide packing) on the tithe_rrng state after "
-          f"{WARMUP + n_timed} steps: kernel {record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, bound "
-          f"{record['bound_ms']:.4f} ms ({record['bound_by']})", flush=True)
+          f"{WARMUP + n_timed} steps: {_times(record)}", flush=True)
 
 
 def _territory_paths(torch, card: str):
@@ -582,10 +626,8 @@ def _territory_paths(torch, card: str):
     b8 = _kernel_record(torch, "compact_rows", cargs, (R * C + R * T) * 4, R * C)
     del state, out, wargs, window, cargs
     print(f"[14] B7 equal to its plain version on the territory state after 12 steps ({E} x {A} windows of "
-          f"{K} cells x {Ch} channels): kernel {b7['ms']:.4f} ms, plain {b7['plain_ms']:.4f} ms, bound "
-          f"{b7['bound_ms']:.4f} ms ({b7['bound_by']}); B8 equal ({R} rows of {C} words, {valid:.3f} valid, "
-          f"budget {T}): kernel {b8['ms']:.4f} ms, plain {b8['plain_ms']:.4f} ms, bound {b8['bound_ms']:.4f} ms "
-          f"({b8['bound_by']})", flush=True)
+          f"{K} cells x {Ch} channels): {_times(b7)}; B8 equal ({R} rows of {C} words, {valid:.3f} valid, "
+          f"budget {T}): {_times(b8)}", flush=True)
 
     # --- phase 15: the territory main path, counts from 0 ---
     n_timed = 32
@@ -638,10 +680,13 @@ def _window_geom(torch, OH: int, OW: int):
 
 def _synthetic_tail_args(torch, kind: str, E: int, HP: int, WPC: int, S: int, N: int, seed: int, A: int = 24,
                          G: int = 3, OH: int = 11, OW: int = 11, fill: float = 0.4):
-    """Seeded inputs of B1 ("B1") or B2 ("B2") at E envs: agents' windows
-    mostly inside the image and a fifth of them anywhere, crossing its
-    edges; B2's objects partly dead (zero words), partly outside the image,
-    and some pairs on one cell. Returns (args, windows crossing an edge)."""
+    """Seeded inputs of B1 ("B1"), B2 ("B2") or B6a ("B6a": a pool of two
+    halves int32[P, HP, WPC] filled independently, so no image's pairing,
+    read with windows starting on even and odd image rows) at E envs:
+    agents' windows mostly inside the image and a fifth of them anywhere,
+    crossing its edges; B2's objects partly dead (zero words), partly
+    outside the image, and some pairs on one cell. Returns (args, windows
+    crossing an edge)."""
     rng = np.random.default_rng(seed)
 
     def words(shape, p):
@@ -652,13 +697,22 @@ def _synthetic_tail_args(torch, kind: str, E: int, HP: int, WPC: int, S: int, N:
     anywhere = rng.random((E, A)) < 0.2
     r0 = np.where(anywhere, rng.integers(-OH + 1, HP, (E, A)), r0)
     l0 = np.where(anywhere, rng.integers(-OW + 1, WPC // S, (E, A)) * S, l0)
-    crossing = int(((r0 < 0) | (r0 + OH > HP) | (l0 < 0) | (l0 + OW * S > WPC)).sum())
+    lanes_out = (l0 < 0) | (l0 + OW * S > WPC)
+    if kind == "B6a":  # window row u reads half row (r0 & 1) * HP / 2 + (r0 >> 1) + (u >> 1)
+        base = (r0 & 1) * (HP // 2) + (r0 >> 1)
+        crossing = int(((base < 0) | (base + (OH - 1) // 2 >= HP) | lanes_out).sum())
+    else:
+        crossing = int(((r0 < 0) | (r0 + OH > HP) | lanes_out).sum())
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).cuda()  # noqa: E731
     args = dict(row0=t(r0), lane0=t(l0), gplus=t(words((E, A, G), 0.9)), geom=_window_geom(torch, OH, OW))
-    if kind == "B1":
+    if kind in ("B1", "B6a"):
         P = 5
-        args.update(static_imgp=t(words((P, HP, WPC), fill)), map_idx=t(rng.integers(0, P, E)),
-                    rext=t(r0 + OH // 2), lext=t(l0 + (OW // 2) * S), words=t(words((E, A, S), 0.7)))
+        pool = dict(static_imgp=t(words((P, HP, WPC), fill))) if kind == "B1" else dict(
+            static_l=t(words((P, HP, WPC), fill)), static_r=t(words((P, HP, WPC), fill)))
+        # B6a's agents sit on image row 1 or below (the pairing holds no row 0).
+        rext = r0 + OH // 2 if kind == "B1" else np.maximum(r0 + OH // 2, 1)
+        args.update(**pool, map_idx=t(rng.integers(0, P, E)), rext=t(rext), lext=t(l0 + (OW // 2) * S),
+                    words=t(words((E, A, S), 0.7)))
     else:
         rext = rng.integers(-2, HP + 2, (E, N))
         lext = rng.integers(-2, WPC // S + 2, (E, N)) * S
@@ -710,12 +764,13 @@ def _synthetic_tails(torch):
 
 def _synthetic_window_args(torch, kind: str, E: int, HP: int, WPC: int, S: int, G: int, seed: int, A: int = 24,
                            OH: int = 11, OW: int = 11, fill: float = 0.4):
-    """Seeded inputs of B5 ("B5": per-env images int32[E, HP, WPC], globals
-    absent a third of the time) or B6b ("B6b": two halves int32[E, HP, WPC]
-    filled independently, so no image's pairing, read with windows starting
-    on even and odd image rows) at E envs: agents' windows mostly inside the
-    image and a fifth of them anywhere, crossing its edges. Returns (args,
-    windows crossing an edge, a note for the printout)."""
+    """Seeded inputs of B3 ("B3": per-env images int32[E, HP, WPC]), B5
+    ("B5": the same, globals absent a third of the time) or B6b ("B6b": two
+    halves int32[E, HP, WPC] filled independently, so no image's pairing,
+    read with windows starting on even and odd image rows) at E envs:
+    agents' windows mostly inside the image and a fifth of them anywhere,
+    crossing its edges. Returns (args, windows crossing an edge, a note for
+    the printout)."""
     rng = np.random.default_rng(seed)
 
     def words(shape, p):
@@ -731,10 +786,10 @@ def _synthetic_window_args(torch, kind: str, E: int, HP: int, WPC: int, S: int, 
     lanes_out = (l0 < 0) | (l0 + OW * S > WPC)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).cuda()  # noqa: E731
     args = dict(row0=t(r0), lane0=t(l0), geom=_window_geom(torch, OH, OW), S=S)
-    if kind == "B5":
+    if kind in ("B3", "B5"):
         crossing = int(((r0 < 0) | (r0 + OH > HP) | lanes_out).sum())
-        front = words((E, A, G), 2 / 3)
-        args.update(imgp=t(words((E, HP, WPC), fill)), gwords=t(front))
+        front = words((E, A, G), 2 / 3 if kind == "B5" else 0.9)
+        args.update(imgp=t(words((E, HP, WPC), fill)), **{"gwords" if kind == "B5" else "gplus": t(front)})
         note = f"{int((front == 0).sum())} absent globals"
     else:
         HP2 = HP // 2
@@ -758,7 +813,7 @@ def _per_env_tails(torch):
     per SM (40x768) and one too large to stage (144x512). Prints each
     launch's plan and its time (CUDA events, the mean of 20 launches after
     one warm-up)."""
-    from mettagrid_tpu_torch.engine.kernels import obs_tail_dyn_v3, obs_tail_v1, tail_plan
+    from mettagrid_tpu_torch.engine.kernels import obs_tail_dyn_v3, obs_tail_v1
 
     mods = {"B5": obs_tail_v1, "B6b": obs_tail_dyn_v3}
     # (kind, E, rows of the image or of each half, WPC, S, G, out_w)
@@ -772,34 +827,194 @@ def _per_env_tails(torch):
         name = mod.__name__.rsplit(".", 1)[1]
         kernel, plain = getattr(mod, name), getattr(mod, f"{name}_ref")
         args, crossing, note = _synthetic_window_args(torch, kind, E, HP, WPC, S, G, seed=2200 + i)
-        A, K = args["row0"].shape[1], args["geom"].shape[0]
         ref_w, ref_a = plain(**args, out_w=out_w)
-        got_w, got_a = kernel(**args, out_w=out_w)
-        records = [("wrapper", got_w, got_a, kernel.last_launch, _time_ms(torch, lambda: kernel(**args, out_w=out_w), 20))]
-        for stages in tail_plan.STAGE_COUNTS[kind]:
-            plan = tail_plan.plan_for(kind, stages, HP, WPC, A, G, K, S, out_w)
-            if plan and stages != kernel.last_launch["stages"] and not tail_plan.refusal(kind, plan, HP, WPC, G, S,
-                                                                                         out_w):
-                ms = _time_ms(torch, lambda: mod.launch_plans([plan], **args, out_w=out_w), 20)
-                records.append(("forced", *mod.launch_plans([plan], **args, out_w=out_w), ms))
-        torch.cuda.synchronize()
+        records = _forced_records(torch, mod, kind, kernel, args, dict(out_w=out_w), HP, WPC, S, G, out_w)
+        _check_records(torch, kind, records, ref_w, ref_a, f"case {i}")
         dropped = int((ref_a - out_w).clamp(min=0).sum())
-        for how, words_, att, plan, ms in records:
-            assert torch.equal(words_, ref_w), f"{kind} words differ from the plain version (case {i}, {how} {plan})"
-            assert torch.equal(att, ref_a), f"{kind} attempted counts differ from the plain version (case {i}, {how})"
+        for how, _, _, plan, ms in records:
             ran.add((kind, plan["stages"]))
             print(f"[22] {kind} equal to its plain version: E {E}, {'image' if kind == 'B5' else 'halves'} {HP}x{WPC}, "
                   f"S {S}, G {G}, out_w {out_w}; {crossing} windows cross the image edge, {dropped} ranks dropped, "
-                  f"{note}; {how} plan: {plan['mode']} mode, {plan['stages']} stage(s), grid {plan['grid']} "
-                  f"({plan['blocks_per_sm']} blocks per SM on {plan['sms']} SMs), {plan['warps']} warps per block, "
-                  f"{plan['smem_bytes']} bytes of shared memory, {plan['registers']} registers, "
-                  f"{plan['rounds']} rounds; {ms:.4f} ms", flush=True)
+                  f"{note}; {how} plan: {_plan_text(plan)}; {ms:.4f} ms", flush=True)
         assert crossing > 0 or E < 7, "no window crosses the image edge"
         if out_w < 256:
             assert dropped > 0, "no rank was dropped"
-        del args, records, got_w, got_a, ref_w, ref_a
+        del args, records, ref_w, ref_a
     want = {("B5", 0), ("B5", 1), ("B5", 2), ("B6b", 0)}
     assert ran == want, f"modes run: {sorted(ran)}"
+
+
+def _forced_records(torch, mod, kind: str, kernel, args: dict, call: dict, HP: int, WPC: int, S: int, G: int,
+                    out_w: int, reps: int = 20):
+    """The wrapper's launch of ``kernel`` on ``args``, then one launch under
+    the plan of each other stage count of ``kind`` that fits and holds
+    (``mod.launch_plans([plan])``): a list of (how, words, attempted, the
+    launch's record, ms by CUDA events over ``reps`` launches)."""
+    from mettagrid_tpu_torch.engine.kernels import tail_plan
+
+    A, K = args["row0"].shape[1], args["geom"].shape[0]
+    N = args["rext"].shape[1] if kind == "B2" else 0
+    got_w, got_a = kernel(**args, **call)
+    records = [("wrapper", got_w, got_a, kernel.last_launch,
+                _time_ms(torch, lambda: kernel(**args, **call), reps, queued=True))]
+    for stages in tail_plan.STAGE_COUNTS[kind]:
+        plan = tail_plan.plan_for(kind, stages, HP, WPC, A, G, K, S, out_w, N)
+        if plan and stages != kernel.last_launch["stages"] and not tail_plan.refusal(kind, plan, HP, WPC, G, S, out_w):
+            ms = _time_ms(torch, lambda: mod.launch_plans([plan], **args, **call), reps, queued=True)
+            records.append(("forced", *mod.launch_plans([plan], **args, **call), ms))
+    torch.cuda.synchronize()
+    return records
+
+
+def _check_records(torch, kind: str, records, ref_w, ref_a, case: str):
+    """Every launch of ``records`` (_forced_records) equal to the plain
+    version's words and counts."""
+    for how, words_, att, plan, _ in records:
+        assert torch.equal(words_, ref_w), f"{kind} words differ from the plain version ({case}, {how} {plan})"
+        assert torch.equal(att, ref_a), f"{kind} attempted counts differ from the plain version ({case}, {how})"
+
+
+def _plan_text(plan: dict) -> str:
+    """A launch's record (the wrappers' ``last_launch``) as text."""
+    return (f"{plan['mode']} mode, {plan['stages']} stage(s), grid {plan['grid']} ({plan['blocks_per_sm']} blocks per "
+            f"SM on {plan['sms']} SMs), {plan['warps']} warps per block, {plan['smem_bytes']} bytes of shared memory, "
+            f"{plan['registers']} registers, {plan['rounds']} rounds")
+
+
+def _b3_b6a_tails(torch):
+    """Phase 23: B3 and B6a against their plain versions on seeded synthetic
+    inputs, in every mode (B3 both packings), at E below, near and above
+    the persistent grid, windows crossing the image edge, dropped ranks, B3
+    at the arena_128 image with S = 3, 4 and 6 (12 rounds in registers; 16
+    and 23 rounds, those past 12 in shared memory), and B6a on both window
+    parities over halves that no image pairs, flagship_v3's 64 x 128 and
+    halves of 64 x 256. Prints each launch's plan and its time (CUDA events,
+    the mean of 20 launches after one warm-up)."""
+    from mettagrid_tpu_torch.engine.kernels import obs_tail_dyn_v2, obs_tail_static_v3
+
+    # (kind, E, rows of the image or of each half, WPC, S, out_w)
+    cases = [("B3", E, 48, 256, 3, 256) for E in (1, 7, 133, 4099)]
+    cases += [("B3", 133, 144, 512, S, 256) for S in (3, 4, 6)] + [("B3", 133, 48, 256, 3, 128)]
+    cases += [("B6a", E, 64, 128, 3, 256) for E in (1, 7, 133, 4099)]
+    cases += [("B6a", 133, 64, 256, 3, 256), ("B6a", 133, 64, 128, 3, 128)]
+    ran = set()
+    for i, (kind, E, HP, WPC, S, out_w) in enumerate(cases):
+        G = 3
+        if kind == "B3":
+            mod, kernel, plain = obs_tail_dyn_v2, obs_tail_dyn_v2.obs_tail_dyn_v2, obs_tail_dyn_v2.obs_tail_dyn_v2_ref
+            args, crossing, note = _synthetic_window_args(torch, "B3", E, HP, WPC, S, G, seed=2300 + i)
+            packings = [{"wide": False}, {"wide": True}]
+        else:
+            mod, kernel, plain = (obs_tail_static_v3, obs_tail_static_v3.obs_tail_static_v3,
+                                  obs_tail_static_v3.obs_tail_static_v3_ref)
+            args, crossing = _synthetic_tail_args(torch, "B6a", E, HP, WPC, S, 0, seed=2300 + i, G=G)
+            odd = int((args["row0"] & 1).sum())
+            note = f"windows on {args['row0'].numel() - odd} even and {odd} odd image rows"
+            assert E < 7 or 0 < odd < args["row0"].numel(), "windows start on one parity only"
+            packings = [{}]
+        for kw in packings:
+            call = dict(kw, out_w=out_w)
+            ref_w, ref_a = plain(**args, **call)
+            records = _forced_records(torch, mod, kind, kernel, args, call, HP, WPC, S, G, out_w)
+            _check_records(torch, kind, records, ref_w, ref_a, f"case {i}, {kw}")
+            dropped = int((ref_a - out_w).clamp(min=0).sum())
+            for how, _, _, plan, ms in records:
+                ran.add((kind, plan["stages"], plan["rounds"]))
+                print(f"[23] {kind} equal to its plain version{f' ({kw})' if kw else ''}: E {E}, "
+                      f"{'image' if kind == 'B3' else 'halves'} {HP}x{WPC}, S {S}, G {G}, out_w {out_w}; {crossing} "
+                      f"windows cross the image edge, {dropped} ranks dropped, {note}; {how} plan: "
+                      f"{_plan_text(plan)}; {ms:.4f} ms", flush=True)
+            assert crossing > 0 or E < 7, "no window crosses the image edge"
+            if out_w < 256:
+                assert dropped > 0, "no rank was dropped"
+            del records, ref_w, ref_a
+        del args
+    want = {("B3", 0, 12), ("B3", 0, 16), ("B3", 0, 23), ("B6a", 1, 12)}
+    assert ran == want, f"modes and rounds run: {sorted(ran)}"
+
+
+def _token_base_10(cfg):
+    """Token values in base 10: 9 token slots per cell on the general
+    config, 1092 candidates (35 rounds of 32)."""
+    cfg.game.obs.token_value_base = 10
+
+
+def _launch_limits(torch):
+    """Phase 24: the general config in base 10 on the card against the CPU
+    path, with B5 at 35 rounds; every persistent kernel against its plain
+    version at the fused route's largest candidate count and one less (a
+    partial last round), in every mode; and images at the shared-memory edge
+    routed by obs.gate_route and launched."""
+    from mettagrid_tpu_torch.engine import obs as tobs
+    from mettagrid_tpu_torch.engine.kernels import (
+        obs_tail_dyn_v2,
+        obs_tail_dyn_v3,
+        obs_tail_dynobj_v2,
+        obs_tail_static_v2,
+        obs_tail_static_v3,
+        obs_tail_v1,
+        tail_plan,
+    )
+
+    before = obs_tail_v1.obs_tail_v1.launches
+    program, _ = _gpu_vs_cpu(torch, "general", 3, 64, 24, 16, change=_token_base_10)
+    rec = obs_tail_v1.obs_tail_v1.last_launch
+    assert obs_tail_v1.obs_tail_v1.launches > before and rec["rounds"] == 35, f"B5 did not run at 35 rounds: {rec}"
+    print(f"[24] GPU path equals the CPU path on the general config in base 10 (S = "
+          f"{tobs.make_stage1(program).num_slots}) over 24 steps of 64 envs, pool of 3 maps, with auto-resets and "
+          f"events; B5 launched {obs_tail_v1.obs_tail_v1.launches - before} times, last plan: {_plan_text(rec)}",
+          flush=True)
+
+    # The largest count: 32 globals, then a 15 x 1 window of 128 slots per
+    # cell; with 31 globals the last round holds one dead entry.
+    OH, OW, S, E, out_w = 15, 1, 128, 133, 1024
+    kinds = {"B1": obs_tail_static_v2, "B2": obs_tail_dynobj_v2, "B3": obs_tail_dyn_v2, "B5": obs_tail_v1,
+             "B6a": obs_tail_static_v3, "B6b": obs_tail_dyn_v3}
+    ran = set()
+    for i, (G, (kind, mod)) in enumerate((G, km) for G in (32, 31) for km in kinds.items()):
+        cands = G + OH * OW * S
+        assert tail_plan.rounds_for(G, OH * OW, S) == 61 and cands == 1920 + G
+        name = mod.__name__.rsplit(".", 1)[1]
+        kernel, plain = getattr(mod, name), getattr(mod, f"{name}_ref")
+        HP, WPC = 32, 256
+        if kind in ("B1", "B2", "B6a"):
+            args, _ = _synthetic_tail_args(torch, kind, E, HP, WPC, S, 60, seed=2400 + i, G=G, OH=OH, OW=OW)
+        else:
+            args, _, _ = _synthetic_window_args(torch, kind, E, HP, WPC, S, G, seed=2400 + i, OH=OH, OW=OW)
+        call = dict(out_w=out_w, **({"wide": True} if kind in ("B1", "B2", "B3") else {}))
+        ref_w, ref_a = plain(**args, **call)
+        records = _forced_records(torch, mod, kind, kernel, args, call, HP, WPC, S, G, out_w, reps=5)
+        _check_records(torch, kind, records, ref_w, ref_a, f"{cands} candidates")
+        for how, _, _, plan, ms in records:
+            assert plan["rounds"] == 61
+            ran.add((kind, plan["stages"], cands))
+            print(f"[24] {kind} equal to its plain version at {cands} candidates (G {G}, a {OH}x{OW} window, S {S}): "
+                  f"E {E}, image {HP}x{WPC}, out_w {out_w}, {int(ref_a.float().mean())} valid per agent on average; "
+                  f"{how} plan: {_plan_text(plan)}; {ms:.4f} ms", flush=True)
+        del args, records, ref_w, ref_a
+    modes = {("B1", 1), ("B1", 2), ("B2", 1), ("B2", 2), ("B3", 0), ("B5", 0), ("B5", 1), ("B5", 2), ("B6a", 1),
+             ("B6b", 0)}
+    want = {(kind, stages, cands) for kind, stages in modes for cands in (1951, 1952)}
+    assert ran == want, f"modes run at 1951 and 1952 candidates: {sorted(ran)}"
+
+    # Images at the shared-memory edge that one env's image and the candidate
+    # tables fit, but no launch plan of B1 does: the gate routes them to B3.
+    for A, HP, WPC, OH, S, out_w in ((128, 88, 640, 11, 3, 256), (96, 88, 640, 11, 3, 512), (64, 448, 128, 5, 1, 128)):
+        K = OH * OH
+        assert tobs.staged_smem_bytes(HP, WPC, K, S) <= tail_plan.MAX_SMEM
+        assert not tail_plan.holds("B1", HP, WPC, A, 3, K, S, out_w)
+        route = tobs.gate_route(True, True, True, False, A, 3, K, S, HP, WPC, 0, out_w)
+        assert route == "B3", f"the gate routes {HP}x{WPC} with {A} agents to {route}"
+        args, crossing, _ = _synthetic_window_args(torch, "B3", 133, HP, WPC, S, 3, seed=2500 + A, A=A, OH=OH, OW=OH)
+        call = dict(out_w=out_w, wide=False)
+        got = obs_tail_dyn_v2.obs_tail_dyn_v2(**args, **call)
+        ref = obs_tail_dyn_v2.obs_tail_dyn_v2_ref(**args, **call)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), f"B3 differs at {HP}x{WPC}, {A} agents"
+        print(f"[24] {HP}x{WPC} image, {A} agents, a {OH}x{OH} window, S {S}, out_w {out_w}: one image and the "
+              f"candidate tables fit a block, no B1 plan does; routed to {route}, equal to its plain version "
+              f"({crossing} windows cross the image edge); {_plan_text(obs_tail_dyn_v2.obs_tail_dyn_v2.last_launch)}",
+              flush=True)
 
 
 def main() -> int:
@@ -827,7 +1042,10 @@ def main() -> int:
     report = build.build()
     for kname, (secs, log) in report.items():
         ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"[2] built {kname} in {secs:.1f} s: {'; '.join(ptxas)}", flush=True)
+        instances = sum("Compiling entry function" in ln for ln in log.splitlines())
+        spills = [m for m in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log) if m != ("0", "0")]
+        print(f"[2] built {kname} in {secs:.1f} s: {instances} instances, {len(spills)} spilling: "
+              f"{'; '.join(ptxas)}", flush=True)
     print(f"[2] build phase {time.perf_counter() - t0:.1f} s", flush=True)
     wrappers = _wrappers()
 
@@ -880,7 +1098,9 @@ def main() -> int:
 
     _synthetic_tails(torch)
     _per_env_tails(torch)
-    print(f"[22] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    _b3_b6a_tails(torch)
+    _launch_limits(torch)
+    print(f"[24] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6a, b6b, b7, b8]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,15 +1,10 @@
-// The observation tail shared by kernels B3 (obs_tail_dyn_v2.cu), B4
-// (obs_tail_static_v1.cu) and B6a (obs_tail_static_v3.cu), for Hopper
-// (sm_90a), which run it one block per env; B1 (obs_tail_static_v2.cu), B2
-// (obs_tail_dynobj_v2.cu), B5 (obs_tail_v1.cu) and B6b (obs_tail_dyn_v3.cu)
-// compute the same tails with persistent blocks (obs_tail_bulk.cuh) from
-// the definitions here.
+// The observation tail's definitions, for Hopper (sm_90a): the words and
+// reads that the persistent tails B1-B3, B5, B6a and B6b compute with
+// (obs_tail_bulk.cuh), and the one-block-per-env tail that B4
+// (obs_tail_static_v1.cu) still runs.
 //
-// The one-block-per-env kernels run over that env's image, int32 [HP, WPC]
-// of +1-encoded token words (0 = empty). B4 builds it in shared memory; B3
-// reads it from device memory, built beforehand. B6a reads it through its
-// row-paired halves (PairedImage below) from shared memory. This header
-// holds what follows (the image may lie in either memory):
+// Each tail runs over an env's image, int32 [HP, WPC] of +1-encoded token
+// words (0 = empty), or over its row-paired halves (PairedImage below):
 //   cells = G global words (+1-encoded, 0 = absent), then
 //           img[row0 + u_k][lane0 + v_k*S + s] for the K window cells in
 //           Manhattan order (table `geom`) and s < S;
@@ -21,8 +16,9 @@
 // The v2 format (B1-B3, B6a, B6b) is loc | feat << 8 | val << 16 with
 // 0xFFFFFF for empty slots: the packing (loc shifted by 15, or 14 when
 // wide, over word - 1; a loc field of 0xFF reads as empty) reproduces the
-// reference's packed compaction bit for bit. The v1 format (B4, B5) is the
-// reference's (feat << 8 | val) | loc << 16 with -1 for empty slots.
+// reference's packed compaction bit for bit (obs_tail_bulk.cuh V2Pack).
+// The v1 format (B4, B5) is the reference's (feat << 8 | val) | loc << 16
+// with -1 for empty slots.
 //
 // One warp per agent walks the candidates 32 at a time; __ballot_sync and
 // __popc give each valid lane its output rank (warp_rank, which kernel B8,
@@ -58,18 +54,8 @@ __device__ inline void load_tables(const int* __restrict__ geom, int K, int S, i
   }
 }
 
-// The v2 word of a valid cell, normal (`wide` = 0) or wide packing.
-struct V2Words {
-  static constexpr int kEmpty = 0xFFFFFF;
-  int loc_sh;
-  unsigned feat_mask;
-  __device__ explicit V2Words(int wide) : loc_sh(wide ? 14 : 15), feat_mask(wide ? 0x3F00u : 0x7F00u) {}
-  __device__ int operator()(int cell, unsigned loc) const {
-    const unsigned packed = (unsigned)(cell - 1) | (loc << loc_sh);
-    const unsigned loc_field = (packed >> loc_sh) & 0xFFu;
-    return loc_field == 0xFFu ? kEmpty : (int)(loc_field | (packed & feat_mask) | ((packed & 0xFFu) << 16));
-  }
-};
+// The empty v2 word.
+constexpr int kV2Empty = 0xFFFFFF;
 
 // The v1 word of a valid cell.
 struct V1Words {
@@ -117,15 +103,15 @@ struct PairedImage {
   }
 };
 
-// The tail for every agent of env e over the window reads `fetch`
-// (FlatImage or PairedImage) and the tables `tab` (load_tables), in the word
-// format `fmt` (V2Words or V1Words). Call after a __syncthreads that follows
-// the last write to either.
-template <class Words, class Fetch>
-__device__ inline void agents_with(const Words fmt, const Fetch fetch, const int* tab, int KS,
-                                   const int* __restrict__ row0, const int* __restrict__ lane0,
-                                   const int* __restrict__ gplus, int* __restrict__ out,
-                                   int* __restrict__ attempted, int e, int A, int G, int out_w) {
+// The v1 tail for every agent of env e over its image `img` int32 [HP,
+// WPC] and the tables `tab` (load_tables), one block per env (B4). Call
+// after a __syncthreads that follows the last write to either.
+__device__ inline void agents(const int* img, const int* tab, int HP, int WPC, int KS,
+                              const int* __restrict__ row0, const int* __restrict__ lane0,
+                              const int* __restrict__ gplus, int* __restrict__ out,
+                              int* __restrict__ attempted, int e, int A, int G, int out_w) {
+  const V1Words fmt{};
+  const FlatImage fetch{img, HP, WPC};
   const int* tab_u = tab;
   const int* tab_l = tab + KS;
   const int* tab_loc = tab + 2 * KS;
@@ -155,18 +141,9 @@ __device__ inline void agents_with(const Words fmt, const Fetch fetch, const int
       const int rank = warp_rank(ok, count);
       if (ok && rank < out_w) o[rank] = fmt(cell, loc);
     }
-    for (int i = (count < out_w ? count : out_w) + lane; i < out_w; i += 32) o[i] = Words::kEmpty;
+    for (int i = (count < out_w ? count : out_w) + lane; i < out_w; i += 32) o[i] = V1Words::kEmpty;
     if (lane == 0) attempted[ea] = count;
   }
-}
-
-// agents_with over a flat image `img` int32 [HP, WPC].
-template <class Words>
-__device__ inline void agents(const Words fmt, const int* img, const int* tab, int HP, int WPC, int KS,
-                              const int* __restrict__ row0, const int* __restrict__ lane0,
-                              const int* __restrict__ gplus, int* __restrict__ out,
-                              int* __restrict__ attempted, int e, int A, int G, int out_w) {
-  agents_with(fmt, FlatImage{img, HP, WPC}, tab, KS, row0, lane0, gplus, out, attempted, e, A, G, out_w);
 }
 
 }  // namespace obs_tail

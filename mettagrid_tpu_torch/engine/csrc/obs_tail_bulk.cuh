@@ -1,36 +1,46 @@
 // The persistent-block machinery of kernels B1 (obs_tail_static_v2.cu), B2
-// (obs_tail_dynobj_v2.cu), B5 (obs_tail_v1.cu) and B6b (obs_tail_dyn_v3.cu),
-// for Hopper (sm_90a). They compute the tails of obs_tail.cuh, word for word
-// (B1, B2 and B6b the v2 words, B5 the v1 words); B3, B4 and B6a still run
-// obs_tail.cuh's one-block-per-env tail. This header holds how:
+// (obs_tail_dynobj_v2.cu), B3 (obs_tail_dyn_v2.cu), B5 (obs_tail_v1.cu), B6a
+// (obs_tail_static_v3.cu) and B6b (obs_tail_dyn_v3.cu), for Hopper (sm_90a).
+// They compute the tails of obs_tail.cuh, word for word (B5 the v1 words,
+// the others the v2 words); B4 alone still runs obs_tail.cuh's
+// one-block-per-env tail. This header holds how:
 //
 // - a candidate plan in registers (Plan): lane l owns candidates
 //   j = 32 r + l for its R rounds, each packed in one register (the offset
 //   of the candidate from the window's corner, the window row, the location
 //   byte, and flags for a global word or no candidate); built once per
 //   block, so no env rebuilds candidate tables, and each round is
-//   branch-free. The offset follows the image's form (Form): a flat image,
+//   branch-free. Past 32 rounds (windows of many token slots) an instance
+//   built with kMore keeps 12 rounds in registers and the entries of the
+//   further rounds in shared memory, in the same format, at the end of the
+//   block's dynamic shared memory: one shared load per candidate. (The
+//   compiler hoists each register entry's fields out of the agent loop:
+//   register plans of 48 or 64 rounds spilled even at 255 registers, and 32
+//   register rounds beside the shared ones at 64 and at 128; 12 do not.)
+//   The offset follows the image's form (Form): a flat image,
 //   or row-paired halves, where window row u lies in half u & 1 at half row
-//   u >> 1;
-// - the window reads (SmemFlat, DeviceFlat, DevicePaired): a flat image
-//   staged in shared memory, or a flat image or paired halves read from
-//   device memory. One bounds test per agent: when the whole window lies
-//   inside the image the agent takes the unchecked loop (one load per
-//   candidate; from device memory a batch of rounds' loads goes out before
-//   their ballots, so they overlap), else the checked loop of
-//   obs_tail::FlatImage or obs_tail::PairedImage;
+//   u >> 1 (in shared memory the half's distance is part of the offset);
+// - the window reads (SmemFlat, SmemPaired, DeviceFlat, DevicePaired): a
+//   flat image or paired halves staged in shared memory, or a flat image or
+//   paired halves read from device memory. One bounds test per agent: when
+//   the whole window lies inside the image the agent takes the unchecked
+//   loop (one load per candidate; from device memory a batch of rounds'
+//   loads goes out before their ballots, so they overlap), else the checked
+//   loop of obs_tail::FlatImage or obs_tail::PairedImage;
 // - rows written by bulk store (tail_row): each warp front-compacts its
 //   agent's row into one of two row buffers in shared memory, fences the
 //   generic proxy against the async proxy, and one lane stores the row to
 //   device memory with cp.async.bulk, so one agent's store overlaps the
 //   compaction of the next (rows that are not whole 16-byte units are
 //   copied out by the warp instead);
-// - the env loops over per-env images (B5, B6b): staged_envs stages each
-//   env's flat image (one bulk copy) onto an mbarrier and its agent tables
-//   by cp.async, the env ahead while the current one runs where two stages
-//   fit (B5); device_envs reads the image from device memory (B5, B6b),
-//   each warp walking its own agents with their tables loaded two agents
-//   ahead and the next agent's window rows prefetched into L2;
+// - the env loops over per-env images (B3, B5, B6b): staged_envs stages
+//   each env's flat image (one bulk copy) onto an mbarrier and its agent
+//   tables by cp.async, the env ahead while the current one runs where two
+//   stages fit (B5); device_envs reads the image from device memory (B3,
+//   B5, B6b), each warp walking its own agents with their tables loaded two
+//   agents ahead and the next agent's window rows prefetched into L2 (B1
+//   and B6a, over a pooled image and the agents' words, keep their own
+//   loops);
 // - the mbarrier and 1-D bulk copy (TMA) primitives, and the 4-byte
 //   cp.async (stage_runs) with which the kernels stage tables.
 
@@ -205,62 +215,97 @@ inline cudaError_t allow_smem(const void* k, int smem, int* allowed) {
 // ---- the candidate plan ----
 
 // How plan entries address a window from its corner: window row u, lane
-// dl lies `u * WPC + dl` words on (flat), or `(u >> 1) * WPC + dl` words on
-// in half u & 1 (paired: the read picks the half by the entry's row), stored
-// shifted left by `shift` (2: byte offsets, for shared memory; 0: word
-// offsets, for device memory).
+// dl lies `u * WPC + dl` words on (flat), or `(u & 1) * half + (u >> 1) *
+// WPC + dl` words on (paired: the right half `half` words after the left
+// one, or `half` = 0 where the read picks the half by the entry's row),
+// stored shifted left by `shift` (2: byte offsets, for shared memory; 0:
+// word offsets, for device memory).
 struct Form {
   int WPC;
   int paired;
+  int half;
   int shift;
 };
 
-// Candidate j = 32 r + lane of the calling lane, for r < R: G globals, then
-// the K window cells of `geom` (rows (u, v, loc)) times S slots. An entry is
-// off | u << 18 | loc << 22, off the candidate's offset in the plan's Form
-// (below 2^18), or kGlobal | loc << 22 for a global word, or kDead past the
-// last candidate; either of the last two has off = 0, which reads the
-// corner harmlessly. Call with every lane of a warp.
-template <int R>
-struct Plan {
-  unsigned en[R];
-  int win_rows;   // 1 + the largest window row u
-  int win_lanes;  // 1 + the largest window lane v * S + s
+// The entry of candidate j of C (G globals, then the K window cells of
+// `geom`, rows (u, v, loc), times S slots): off | u << 18 | loc << 22, off
+// the candidate's offset in the plan's Form (below 2^18), or
+// kGlobal | loc << 22 for a global word, or kDead past the last candidate;
+// either of the last two has off = 0, which reads the corner harmlessly.
+// Widens max_u and max_l by a window candidate's row and lane.
+__device__ inline unsigned plan_entry(const int* __restrict__ geom, int j, int G, int C, int S, const Form f,
+                                      int& max_u, int& max_l) {
+  if (j < G) return kGlobal | (obs_tail::kGlobalLocation << 22);
+  if (j >= C) return kDead;
+  const int jj = j - G;
+  const int k = jj / S;
+  const int u = geom[3 * k];
+  const int dl = geom[3 * k + 1] * S + (jj - k * S);
+  const int loc = geom[3 * k + 2];
+  const int off = (f.paired ? (u & 1) * f.half + (u >> 1) * f.WPC : u * f.WPC) + dl;
+  if (u < 0 || u > 15 || dl < 0 || off >= (int)((kOffMask + 1) >> f.shift) || loc < 0 || loc > 0xFF) {
+    printf("obs tail plan: window cell %d (u %d, lane %d, loc %d) does not pack\n", k, u, dl, loc);
+    assert(false);
+  }
+  max_u = max(max_u, u);
+  max_l = max(max_l, dl);
+  return ((unsigned)off << f.shift) | ((unsigned)u << 18) | ((unsigned)loc << 22);
+}
 
-  __device__ void build(const int* __restrict__ geom, int G, int K, int S, const Form f) {
+// The bytes of dynamic shared memory this launch was given.
+__device__ __forceinline__ unsigned dynamic_smem_bytes() {
+  unsigned n;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(n));
+  return n;
+}
+
+// A shared-memory load that stays where it is written, so that the plan
+// entries past the register rounds are not hoisted out of the agent loop.
+__device__ __forceinline__ unsigned lds_here(uint32_t addr) {
+  unsigned v;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// Candidate j = 32 r + lane of the calling lane, for r < R, in registers;
+// with kMore, the rounds past R (ceil((G + K*S) / 32) - R of them) in
+// shared memory too, [round - R][lane], in the last more_rounds * 128 bytes
+// of the block's dynamic shared memory (from `smem`, its start); warp 0
+// writes them, so a __syncthreads must come before they are read. Call with
+// every lane of a warp.
+template <int R, bool kMore = false>
+struct Plan {
+  static constexpr int kRounds = R;
+  static constexpr bool kMoreInSmem = kMore;
+  unsigned en[R];
+  uint32_t more;    // kMore: the shared address of the entries past round R
+  int more_rounds;  // kMore: the rounds past R
+  int win_rows;     // 1 + the largest window row u
+  int win_lanes;    // 1 + the largest window lane v * S + s
+
+  __device__ void build(const int* __restrict__ geom, int G, int K, int S, const Form f,
+                        const unsigned char* smem = nullptr) {
     const int lane = threadIdx.x & 31;
     const int C = G + K * S;
     int max_u = 0, max_l = 0;
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int j = 32 * r + lane;
-      unsigned e = kDead;
-      if (j < G) {
-        e = kGlobal | (obs_tail::kGlobalLocation << 22);
-      } else if (j < C) {
-        const int jj = j - G;
-        const int k = jj / S;
-        const int u = geom[3 * k];
-        const int dl = geom[3 * k + 1] * S + (jj - k * S);
-        const int loc = geom[3 * k + 2];
-        const int off = (f.paired ? (u >> 1) * f.WPC : u * f.WPC) + dl;
-        if (u < 0 || u > 15 || dl < 0 || off >= (int)((kOffMask + 1) >> f.shift) || loc < 0 || loc > 0xFF) {
-          printf("obs tail plan: window cell %d (u %d, lane %d, loc %d) does not pack\n", k, u, dl, loc);
-          assert(false);
-        }
-        e = ((unsigned)off << f.shift) | ((unsigned)u << 18) | ((unsigned)loc << 22);
-        max_u = max(max_u, u);
-        max_l = max(max_l, dl);
+    for (int r = 0; r < R; ++r) en[r] = plan_entry(geom, 32 * r + lane, G, C, S, f, max_u, max_l);
+    if constexpr (kMore) {
+      more_rounds = max((C + 31) / 32 - R, 0);
+      more = smem_addr(smem) + dynamic_smem_bytes() - 128u * (unsigned)more_rounds;
+      for (int r = 0; r < more_rounds; ++r) {
+        const unsigned e = plan_entry(geom, 32 * (R + r) + lane, G, C, S, f, max_u, max_l);
+        if (threadIdx.x < 32) sts(more + 4u * (unsigned)(32 * r + lane), (int)e);
       }
-      en[r] = e;
     }
     win_rows = (int)__reduce_max_sync(0xFFFFFFFFu, (unsigned)max_u) + 1;
     win_lanes = (int)__reduce_max_sync(0xFFFFFFFFu, (unsigned)max_l) + 1;
   }
 
   // A flat image WPC words wide, staged in shared memory (B1, B2).
-  __device__ void build(const int* __restrict__ geom, int G, int K, int S, int WPC) {
-    build(geom, G, K, S, Form{WPC, 0, 2});
+  __device__ void build(const int* __restrict__ geom, int G, int K, int S, int WPC,
+                        const unsigned char* smem = nullptr) {
+    build(geom, G, K, S, Form{WPC, 0, 0, 2}, smem);
   }
 };
 
@@ -279,7 +324,7 @@ struct SmemFlat {
   static constexpr bool kAhead = false;
   const int* img;
   int HP, WPC;
-  __device__ Form form() const { return Form{WPC, 0, 2}; }
+  __device__ Form form() const { return Form{WPC, 0, 0, 2}; }
   __device__ bool inside(int r0, int l0, int rows, int lanes) const {
     return r0 >= 0 && r0 + rows <= HP && l0 >= 0 && l0 + lanes <= WPC;
   }
@@ -301,6 +346,28 @@ __device__ __forceinline__ bool paired_inside(int r0, int l0, int rows, int lane
   return b >= 0 && b + ((rows - 1) >> 1) < 2 * HP2 && l0 >= 0 && l0 + lanes <= WPC;
 }
 
+// The two paired halves, int32 [2*HP2, WPC] each, back to back in shared
+// memory from `left`: the plan's offsets carry the half.
+struct SmemPaired {
+  static constexpr bool kAhead = false;
+  const int* left;
+  int HP2, WPC;
+  __device__ int half() const { return 2 * HP2 * WPC; }
+  __device__ Form form() const { return Form{WPC, 1, half(), 2}; }
+  __device__ bool inside(int r0, int l0, int rows, int lanes) const {
+    return paired_inside(r0, l0, rows, lanes, HP2, WPC);
+  }
+  __device__ uint32_t corner(int r0, int l0) const {
+    return smem_addr(left) + 4u * (unsigned)(paired_base(r0, HP2) * WPC + l0);
+  }
+  __device__ int load(uint32_t c, unsigned en) const { return lds(c + (en & kOffMask)); }
+  __device__ int checked(int r0, int l0, unsigned en) const {
+    const int u = entry_row(en);
+    const int dl = (int)((en & kOffMask) >> 2) - (u & 1) * half() - (u >> 1) * WPC;
+    return obs_tail::PairedImage{left, left + half(), HP2, WPC}(r0, u, l0 + dl);
+  }
+};
+
 // A flat image int32 [HP, WPC] in device memory; `at(e)` is env e's of
 // images laid back to back.
 struct DeviceFlat {
@@ -308,7 +375,7 @@ struct DeviceFlat {
   const int* img;
   int HP, WPC;
   __device__ DeviceFlat at(int e) const { return DeviceFlat{img + (size_t)e * HP * WPC, HP, WPC}; }
-  __device__ Form form() const { return Form{WPC, 0, 0}; }
+  __device__ Form form() const { return Form{WPC, 0, 0, 0}; }
   __device__ bool inside(int r0, int l0, int rows, int lanes) const {
     return r0 >= 0 && r0 + rows <= HP && l0 >= 0 && l0 + lanes <= WPC;
   }
@@ -344,7 +411,7 @@ struct DevicePaired {
     const size_t o = (size_t)e * 2 * HP2 * WPC;
     return DevicePaired{left + o, right + o, HP2, WPC};
   }
-  __device__ Form form() const { return Form{WPC, 1, 0}; }
+  __device__ Form form() const { return Form{WPC, 1, 0, 0}; }
   __device__ bool inside(int r0, int l0, int rows, int lanes) const {
     return paired_inside(r0, l0, rows, lanes, HP2, WPC);
   }
@@ -373,16 +440,16 @@ struct DevicePaired {
 
 // ---- word formats ----
 
-// The v2 word of a valid cell with location byte `loc`: obs_tail::V2Words
-// rewritten for fewer instructions, word for word the same. With
-// c = cell - 1 and sh = 15 (14 when wide), the packing c | loc << sh has
-// location field lf = ((c >> sh) & 0xFF) | loc, feature bits c & feat_mask
-// (the location lies above them) and value byte c & 0xFF; the word is
+// The v2 word of a valid cell with location byte `loc` (obs_tail.cuh's v2
+// format), in few instructions. With c = cell - 1 and sh = 15 (14 when
+// wide), the packing c | loc << sh has location field
+// lf = ((c >> sh) & 0xFF) | loc, feature bits c & feat_mask (the location
+// lies above them) and value byte c & 0xFF; the word is
 // lf | (c & feat_mask) | (c & 0xFF) << 16, one byte permute (bytes lf, c's
 // byte 1, c's byte 0, 0) and a mask; a location field of 0xFF is the empty
 // word.
 struct V2Pack {
-  static constexpr int kEmpty = obs_tail::V2Words::kEmpty;
+  static constexpr int kEmpty = obs_tail::kV2Empty;
   static constexpr bool kAnyWidth = false;  // v2 rows are a multiple of 128 words
   int sh;
   unsigned keep;  // 0xFF00FF | feat_mask
@@ -411,9 +478,12 @@ __device__ __forceinline__ int row_stride(int out_w) { return (out_w + 3) & ~3; 
 // The candidate rounds of one agent: `load(entry)` reads each window
 // candidate, globals take `gword`, entries past the last candidate read 0;
 // `emit(cell, entry)` ranks each round. kB rounds' loads go out before
-// their ballots (1: each round loads, then ranks).
-template <int R, int kB, class Load, class Emit>
-__device__ __forceinline__ void rounds(const Plan<R>& plan, int gword, Load load, Emit emit) {
+// their ballots (1: each round loads, then ranks); then, for a plan with
+// entries in shared memory, its further rounds the same way, at most 4
+// rounds' loads at a time.
+template <int kB, class P, class Load, class Emit>
+__device__ __forceinline__ void rounds(const P& plan, int gword, Load load, Emit emit) {
+  constexpr int R = P::kRounds;
   static_assert(R % kB == 0, "a batch of rounds divides the rounds");
 #pragma unroll
   for (int r0 = 0; r0 < R; r0 += kB) {
@@ -429,6 +499,24 @@ __device__ __forceinline__ void rounds(const Plan<R>& plan, int gword, Load load
       emit(c, en);
     }
   }
+  if constexpr (P::kMoreInSmem) {
+    // At most 4 rounds' loads ahead here: the register rounds' entries stay
+    // live beside them.
+    constexpr int kM = kB < 4 ? kB : 4;
+    const unsigned lane = threadIdx.x & 31;
+    for (int r0 = 0; r0 < plan.more_rounds; r0 += kM) {
+      unsigned en[kM];
+      int cell[kM];
+#pragma unroll
+      for (int i = 0; i < kM; ++i) {
+        en[i] = r0 + i < plan.more_rounds ? lds_here(plan.more + 4u * (32u * (unsigned)(r0 + i) + lane)) : kDead;
+      }
+#pragma unroll
+      for (int i = 0; i < kM; ++i) cell[i] = load(en[i]);
+#pragma unroll
+      for (int i = 0; i < kM; ++i) emit(en[i] & kDead ? 0 : cell[i], en[i]);
+    }
+  }
 }
 
 // The tail of one agent, whose window starts at (r0, l0) of `read`'s image,
@@ -441,11 +529,13 @@ __device__ __forceinline__ void rounds(const Plan<R>& plan, int gword, Load load
 // Requires G <= 32 (every global in round 0) and, unless Pack::kAnyWidth,
 // out_w % 4 == 0. Drain with bulk_wait_all (lane 0) before the block
 // exits.
-template <int R, class Pack, class Read>
-__device__ inline void tail_row(const Pack fmt, const Plan<R>& plan, const Read& read, int r0, int l0, int gword,
+template <class P, class Pack, class Read>
+__device__ inline void tail_row(const Pack fmt, const P& plan, const Read& read, int r0, int l0, int gword,
                                 int* __restrict__ out, int* __restrict__ attempted, size_t i, int out_w, int* rows,
                                 unsigned& nrow) {
-  constexpr int kB = Read::kAhead ? (R > 16 ? 8 : R) : 1;
+  // Rounds whose loads a read from device memory sends before their
+  // ballots: all of them up to 16 rounds, else 8.
+  constexpr int kB = Read::kAhead ? (P::kRounds > 16 ? 8 : P::kRounds) : 1;
   const int lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   const int stride = Pack::kAnyWidth ? row_stride(out_w) : out_w;
@@ -468,9 +558,9 @@ __device__ inline void tail_row(const Pack fmt, const Plan<R>& plan, const Read&
   if (read.inside(r0, l0, plan.win_rows, plan.win_lanes)) {
     // The whole window lies inside the image: one load per candidate.
     const auto c = read.corner(r0, l0);
-    rounds<R, kB>(plan, gword, [&](unsigned en) { return read.load(c, en); }, emit);
+    rounds<kB>(plan, gword, [&](unsigned en) { return read.load(c, en); }, emit);
   } else {
-    rounds<R, kB>(plan, gword, [&](unsigned en) { return read.checked(r0, l0, en); }, emit);
+    rounds<kB>(plan, gword, [&](unsigned en) { return read.checked(r0, l0, en); }, emit);
   }
   // Empty words after the valid ones: single words up to a 16-byte
   // boundary, then 16-byte stores.
@@ -500,8 +590,8 @@ __device__ inline void tail_row(const Pack fmt, const Plan<R>& plan, const Read&
 // [A, G] (staged in shared memory by the caller, or in device memory), its
 // output rows `out` [A, out_w] and counts `attempted` [A]. Call after a
 // __syncthreads that follows the last write to a staged image and tables.
-template <int R, class Pack, class Read>
-__device__ inline void agents_bulk(const Pack fmt, const Plan<R>& plan, const Read& read, const int* row0,
+template <class P, class Pack, class Read>
+__device__ inline void agents_bulk(const Pack fmt, const P& plan, const Read& read, const int* row0,
                                    const int* lane0, const int* gplus, int* __restrict__ out,
                                    int* __restrict__ attempted, int A, int G, int out_w, int* rows, unsigned& nrow) {
   const int lane = threadIdx.x & 31;
@@ -532,10 +622,11 @@ __device__ inline void stage_runs(int* dst, const Run (&runs)[kParts]) {
   }
 }
 
-// ---- env loops over per-env images (B5, B6b) ----
+// ---- env loops over per-env images (B3, B5, B6b) ----
 
 // Shared memory of staged_envs (bytes): the mbarriers, per stage the env's
-// image and its agent tables, then each warp's two row buffers.
+// image and its agent tables, then each warp's two row buffers (and, with
+// kMore, the plan's entries past its register rounds at the end).
 // tail_plan.smem_bytes computes the same on the host.
 constexpr int kBarrierBytes = 128;
 
@@ -548,8 +639,8 @@ __device__ __forceinline__ int staged_tables_words(int A, int G) { return (A * (
 // tables (row0, lane0, front [A, G]) with cp.async. With kStages = 2 the env
 // ahead is staged while the current one runs; with one, each env is staged
 // just before its tail. The image must be whole 16-byte units, 16-byte
-// aligned.
-template <int R, int kStages, class Pack>
+// aligned. With kMore the plan keeps its rounds past R in shared memory.
+template <int R, int kStages, bool kMore, class Pack>
 __device__ inline void staged_envs(const Pack fmt, const int* __restrict__ geom, const int* __restrict__ img,
                                    int HP, int WPC, const int* __restrict__ row0, const int* __restrict__ lane0,
                                    const int* __restrict__ front, int* __restrict__ out,
@@ -569,8 +660,8 @@ __device__ inline void staged_envs(const Pack fmt, const int* __restrict__ geom,
   }
   __syncthreads();
   auto read = [&](int s) { return SmemFlat{imgs + s * n_img, HP, WPC}; };
-  Plan<R> plan;
-  plan.build(geom, G, K, S, read(0).form());
+  Plan<R, kMore> plan;
+  plan.build(geom, G, K, S, read(0).form(), smem);
 
   // Every thread: env `env`'s agent tables into stage s with cp.async (one
   // group); thread 0: its image with one bulk copy onto bar[s].
@@ -622,8 +713,9 @@ __device__ inline void staged_envs(const Pack fmt, const int* __restrict__ geom,
 // block share the env's window rows in L1. Each warp loads the tables (row0,
 // lane0, front [E, A, G]) two agents ahead and prefetches the next agent's
 // window rows into L2 while the current agent's tail runs. Shared memory:
-// each warp's two row buffers.
-template <int R, class Pack, class Src>
+// each warp's two row buffers (and, with kMore, the plan's entries past its
+// register rounds).
+template <int R, bool kMore, class Pack, class Src>
 __device__ inline void device_envs(const Pack fmt, const int* __restrict__ geom, const Src src,
                                    const int* __restrict__ row0, const int* __restrict__ lane0,
                                    const int* __restrict__ front, int* __restrict__ out,
@@ -633,8 +725,9 @@ __device__ inline void device_envs(const Pack fmt, const int* __restrict__ geom,
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   int* rows = reinterpret_cast<int*>(smem) + warp * 2 * row_stride(out_w);
-  Plan<R> plan;
-  plan.build(geom, G, K, S, src.form());
+  Plan<R, kMore> plan;
+  plan.build(geom, G, K, S, src.form(), smem);
+  if constexpr (kMore) __syncthreads();  // the plan's entries in shared memory
   if (warp >= A) return;
 
   struct Item {

@@ -40,7 +40,7 @@
 
 namespace {
 
-template <int R>
+template <int R, bool kMore>
 __global__ void __launch_bounds__(512, 2) obs_tail_dyn_v3_kernel(
     const int* __restrict__ imgp_l,  // [E, 2*HP2, WPC]
     const int* __restrict__ imgp_r,  // [E, 2*HP2, WPC]
@@ -54,33 +54,36 @@ __global__ void __launch_bounds__(512, 2) obs_tail_dyn_v3_kernel(
   // Shared memory: each warp's two row buffers.
   extern __shared__ __align__(128) unsigned char smem[];
   const tail_bulk::V2Pack fmt(0);
-  tail_bulk::device_envs<R>(fmt, geom, tail_bulk::DevicePaired{imgp_l, imgp_r, HP2, WPC}, row0, lane0, gplus, out,
-                            attempted, E, A, G, K, S, out_w, smem);
+  tail_bulk::device_envs<R, kMore>(fmt, geom, tail_bulk::DevicePaired{imgp_l, imgp_r, HP2, WPC}, row0, lane0,
+                                   gplus, out, attempted, E, A, G, K, S, out_w, smem);
 }
 
 using KernelFn = void (*)(const int*, const int*, const int*, const int*, const int*, const int*, int*, int*, int,
                           int, int, int, int, int, int, int);
 
-// The dynamic shared memory each instance is allowed, by round count.
-int allowed_smem[33] = {};
+// The dynamic shared memory each instance is allowed, by round count (33:
+// the instance with plan entries in shared memory).
+int allowed_smem[34] = {};
 
-// The instance for `rounds` candidate rounds, with its dynamic shared memory
+// The instance for `rounds` candidate rounds (above 32: the one whose plan
+// keeps the rounds past 12 in shared memory), with its dynamic shared memory
 // allowed up to at least `smem` bytes; null for an unknown round count, or
 // for `stages` other than 0 (the halves are read from device memory).
 KernelFn instance(int rounds, int stages, int smem, cudaError_t* err) {
   KernelFn k = nullptr;
   if (stages == 0) {
     switch (rounds) {
-      case 4: k = obs_tail_dyn_v3_kernel<4>; break;
-      case 8: k = obs_tail_dyn_v3_kernel<8>; break;
-      case 12: k = obs_tail_dyn_v3_kernel<12>; break;
-      case 16: k = obs_tail_dyn_v3_kernel<16>; break;
-      case 24: k = obs_tail_dyn_v3_kernel<24>; break;
-      case 32: k = obs_tail_dyn_v3_kernel<32>; break;
-      default: break;
+      case 4: k = obs_tail_dyn_v3_kernel<4, false>; break;
+      case 8: k = obs_tail_dyn_v3_kernel<8, false>; break;
+      case 12: k = obs_tail_dyn_v3_kernel<12, false>; break;
+      case 16: k = obs_tail_dyn_v3_kernel<16, false>; break;
+      case 24: k = obs_tail_dyn_v3_kernel<24, false>; break;
+      case 32: k = obs_tail_dyn_v3_kernel<32, false>; break;
+      default: k = rounds > 32 ? obs_tail_dyn_v3_kernel<12, true> : nullptr; break;
     }
   }
-  *err = k == nullptr ? cudaErrorInvalidValue : tail_bulk::allow_smem((const void*)k, smem, &allowed_smem[rounds]);
+  int* allowed = &allowed_smem[rounds > 32 ? 33 : rounds];
+  *err = k == nullptr ? cudaErrorInvalidValue : tail_bulk::allow_smem((const void*)k, smem, allowed);
   return k;
 }
 

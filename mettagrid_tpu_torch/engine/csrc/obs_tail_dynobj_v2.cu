@@ -45,7 +45,7 @@
 
 namespace {
 
-template <int R, int kStages>
+template <int R, int kStages, bool kMore>
 __global__ void __launch_bounds__(512, 2) obs_tail_dynobj_v2_kernel(
     const int* __restrict__ rext,   // [E, N] image row of each object
     const int* __restrict__ lext,   // [E, N] image lane of each object's first word
@@ -76,8 +76,8 @@ __global__ void __launch_bounds__(512, 2) obs_tail_dynobj_v2_kernel(
   // ---- zero the image once (16-byte stores; HP*WPC % 4 == 0) ----
   int4* dst = reinterpret_cast<int4*>(img);
   for (int i = tid; i < n_img / 4; i += blockDim.x) dst[i] = make_int4(0, 0, 0, 0);
-  tail_bulk::Plan<R> plan;
-  plan.build(geom, G, K, S, WPC);
+  tail_bulk::Plan<R, kMore> plan;
+  plan.build(geom, G, K, S, WPC, smem);
 
   // Every thread: its share of env `env`'s tables into stage s (one group).
   auto prefetch = [&](int env, int s) {
@@ -159,28 +159,30 @@ using KernelFn = void (*)(const int*, const int*, const int*, const int*, const 
                           int*, int*, int, int, int, int, int, int, int, int, int, int);
 
 // The dynamic shared memory each instance is allowed, by stage count and
-// round count.
-int allowed_smem[3][33] = {};
+// round count (33: the instance with plan entries in shared memory).
+int allowed_smem[3][34] = {};
 
 template <int kStages>
 KernelFn pick_rounds(int rounds) {
   switch (rounds) {
-    case 4: return obs_tail_dynobj_v2_kernel<4, kStages>;
-    case 8: return obs_tail_dynobj_v2_kernel<8, kStages>;
-    case 12: return obs_tail_dynobj_v2_kernel<12, kStages>;
-    case 16: return obs_tail_dynobj_v2_kernel<16, kStages>;
-    case 24: return obs_tail_dynobj_v2_kernel<24, kStages>;
-    case 32: return obs_tail_dynobj_v2_kernel<32, kStages>;
-    default: return nullptr;
+    case 4: return obs_tail_dynobj_v2_kernel<4, kStages, false>;
+    case 8: return obs_tail_dynobj_v2_kernel<8, kStages, false>;
+    case 12: return obs_tail_dynobj_v2_kernel<12, kStages, false>;
+    case 16: return obs_tail_dynobj_v2_kernel<16, kStages, false>;
+    case 24: return obs_tail_dynobj_v2_kernel<24, kStages, false>;
+    case 32: return obs_tail_dynobj_v2_kernel<32, kStages, false>;
+    default: return rounds > 32 ? obs_tail_dynobj_v2_kernel<12, kStages, true> : nullptr;
   }
 }
 
-// The instance for `rounds` candidate rounds and `stages` staging areas
+// The instance for `rounds` candidate rounds (above 32: the one whose plan
+// keeps the rounds past 12 in shared memory) and `stages` staging areas
 // (1: none), with its dynamic shared memory allowed up to at least `smem`
 // bytes; null for an unknown combination.
 KernelFn instance(int rounds, int stages, int smem, cudaError_t* err) {
   KernelFn k = stages == 1 ? pick_rounds<1>(rounds) : stages == 2 ? pick_rounds<2>(rounds) : nullptr;
-  *err = k == nullptr ? cudaErrorInvalidValue : tail_bulk::allow_smem((const void*)k, smem, &allowed_smem[stages][rounds]);
+  int* allowed = &allowed_smem[stages][rounds > 32 ? 33 : rounds];
+  *err = k == nullptr ? cudaErrorInvalidValue : tail_bulk::allow_smem((const void*)k, smem, allowed);
   return k;
 }
 

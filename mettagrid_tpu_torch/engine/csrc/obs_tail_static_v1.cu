@@ -77,8 +77,7 @@ __global__ void obs_tail_static_v1_kernel(
   }
   __syncthreads();
 
-  obs_tail::agents(obs_tail::V1Words(), img, tab, HP, WPC, K * S, row0, lane0, gwords, out, attempted,
-                   e, A, GP, t_pad);
+  obs_tail::agents(img, tab, HP, WPC, K * S, row0, lane0, gwords, out, attempted, e, A, GP, t_pad);
 }
 
 }  // namespace

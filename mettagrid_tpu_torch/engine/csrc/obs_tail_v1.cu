@@ -42,7 +42,7 @@
 
 namespace {
 
-template <int R, int kStages>
+template <int R, int kStages, bool kMore>
 __global__ void __launch_bounds__(512, 2) obs_tail_v1_kernel(
     const int* __restrict__ imgp,    // [E, HP, WPC]
     const int* __restrict__ row0,    // [E, A]
@@ -59,11 +59,11 @@ __global__ void __launch_bounds__(512, 2) obs_tail_v1_kernel(
   extern __shared__ __align__(128) unsigned char smem[];
   const tail_bulk::V1Pack fmt{};
   if constexpr (kStages == 0) {
-    tail_bulk::device_envs<R>(fmt, geom, tail_bulk::DeviceFlat{imgp, HP, WPC}, row0, lane0, gwords, out, attempted,
-                              E, A, GP, K, S, t_pad, smem);
+    tail_bulk::device_envs<R, kMore>(fmt, geom, tail_bulk::DeviceFlat{imgp, HP, WPC}, row0, lane0, gwords, out,
+                                     attempted, E, A, GP, K, S, t_pad, smem);
   } else {
-    tail_bulk::staged_envs<R, kStages>(fmt, geom, imgp, HP, WPC, row0, lane0, gwords, out, attempted, E, A, GP, K,
-                                       S, t_pad, smem);
+    tail_bulk::staged_envs<R, kStages, kMore>(fmt, geom, imgp, HP, WPC, row0, lane0, gwords, out, attempted, E, A,
+                                              GP, K, S, t_pad, smem);
   }
 }
 
@@ -71,23 +71,25 @@ using KernelFn = void (*)(const int*, const int*, const int*, const int*, const 
                           int, int, int, int, int);
 
 // The dynamic shared memory each instance is allowed, by stage count (0:
-// device mode) and round count.
-int allowed_smem[3][33] = {};
+// device mode) and round count (33: the instance with plan entries in
+// shared memory).
+int allowed_smem[3][34] = {};
 
 template <int kStages>
 KernelFn pick_rounds(int rounds) {
   switch (rounds) {
-    case 4: return obs_tail_v1_kernel<4, kStages>;
-    case 8: return obs_tail_v1_kernel<8, kStages>;
-    case 12: return obs_tail_v1_kernel<12, kStages>;
-    case 16: return obs_tail_v1_kernel<16, kStages>;
-    case 24: return obs_tail_v1_kernel<24, kStages>;
-    case 32: return obs_tail_v1_kernel<32, kStages>;
-    default: return nullptr;
+    case 4: return obs_tail_v1_kernel<4, kStages, false>;
+    case 8: return obs_tail_v1_kernel<8, kStages, false>;
+    case 12: return obs_tail_v1_kernel<12, kStages, false>;
+    case 16: return obs_tail_v1_kernel<16, kStages, false>;
+    case 24: return obs_tail_v1_kernel<24, kStages, false>;
+    case 32: return obs_tail_v1_kernel<32, kStages, false>;
+    default: return rounds > 32 ? obs_tail_v1_kernel<12, kStages, true> : nullptr;
   }
 }
 
-// The instance for `rounds` candidate rounds and `stages` (0: device mode),
+// The instance for `rounds` candidate rounds (above 32: the one whose plan
+// keeps the rounds past 12 in shared memory) and `stages` (0: device mode),
 // with its dynamic shared memory allowed up to at least `smem` bytes; null
 // for an unknown combination.
 KernelFn instance(int rounds, int stages, int smem, cudaError_t* err) {
@@ -95,7 +97,8 @@ KernelFn instance(int rounds, int stages, int smem, cudaError_t* err) {
                : stages == 1 ? pick_rounds<1>(rounds)
                : stages == 2 ? pick_rounds<2>(rounds)
                              : nullptr;
-  *err = k == nullptr ? cudaErrorInvalidValue : tail_bulk::allow_smem((const void*)k, smem, &allowed_smem[stages][rounds]);
+  int* allowed = &allowed_smem[stages][rounds > 32 ? 33 : rounds];
+  *err = k == nullptr ? cudaErrorInvalidValue : tail_bulk::allow_smem((const void*)k, smem, allowed);
   return k;
 }
 

@@ -30,14 +30,7 @@ import ctypes
 import torch
 
 from mettagrid_tpu_torch.engine.kernels import build, tail_plan
-from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import (
-    MAX_SMEM,
-    add_words,
-    check_bulk_rows,
-    launch,
-    staged_smem_bytes,
-    tail_ref,
-)
+from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import add_words, launch, tail_ref
 
 
 def obs_tail_dynobj_v2_ref(rext, lext, words, row0, lane0, gplus, geom, HP: int, WPC: int, out_w: int, wide: bool = False):
@@ -73,9 +66,6 @@ def _check(rext, lext, words, row0, lane0, gplus, geom, HP, WPC, out_w):
         raise ValueError("obs_tail_dynobj_v2: empty batch, object set, agent set, slot set, image or output")
     if (HP * WPC) % 4:
         raise ValueError("obs_tail_dynobj_v2: the image must be a whole number of 16-byte rows")
-    smem = staged_smem_bytes(HP, WPC, K, S)
-    if smem > MAX_SMEM:
-        raise ValueError(f"obs_tail_dynobj_v2: image + tables need {smem} bytes of shared memory (> {MAX_SMEM})")
 
 
 def obs_tail_dynobj_v2(rext, lext, words, row0, lane0, gplus, geom, HP: int, WPC: int, out_w: int, wide: bool = False):
@@ -98,14 +88,16 @@ def launch_plans(plans, rext, lext, words, row0, lane0, gplus, geom, HP: int, WP
     """The CUDA kernel on CUDA tensors with the best of ``plans`` (None: every
     candidate plan of tail_plan, as the wrapper launches it; one plan to time
     it alone, tools/tail_sweep.py). Returns (words, attempted, the launch's
-    record); counts no launch."""
+    record); counts no launch. Raises where the plans cannot hold the
+    shapes (tail_plan.check_holds)."""
     _check(rext, lext, words, row0, lane0, gplus, geom, HP, WPC, out_w)
     E, N = rext.shape
     A = row0.shape[1]
     S, G, K = words.shape[2], gplus.shape[2], geom.shape[0]
-    check_bulk_rows("obs_tail_dynobj_v2", out_w, G)
     if plans is None:
         plans = tail_plan.candidate_plans("B2", HP, WPC, A, G, K, S, out_w, N=N)
+    else:
+        tail_plan.check_holds("B2", plans, HP, WPC, G, S, out_w)
     dev = rext.device
     out = torch.empty((E, A, out_w), dtype=torch.int32, device=dev)
     attempted = torch.empty((E, A), dtype=torch.int32, device=dev)

@@ -25,7 +25,8 @@ import ctypes
 import torch
 
 from mettagrid_tpu_torch.engine.kernels import build
-from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import add_words, check_static_inputs
+from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import add_words, check_static_inputs, staged_smem_bytes
+from mettagrid_tpu_torch.engine.kernels.tail_plan import MAX_SMEM
 from mettagrid_tpu_torch.engine.kernels.obs_tail_v1 import tail_v1_ref
 
 
@@ -50,6 +51,9 @@ def obs_tail_static_v1(static_imgp, map_idx, row0, lane0, rext, lext, words, gwo
     P, HP, WPC = static_imgp.shape
     E, A = row0.shape
     S, GP, K = words.shape[2], gwords.shape[2], geom.shape[0]
+    smem = staged_smem_bytes(HP, WPC, K, S)
+    if smem > MAX_SMEM:
+        raise ValueError(f"obs_tail_static_v1: image + tables need {smem} bytes of shared memory (> {MAX_SMEM})")
     lib = _library()
     dev = static_imgp.device
     out = torch.empty((E, A, out_w), dtype=torch.int32, device=dev)

@@ -32,15 +32,16 @@ import ctypes
 import torch
 
 from mettagrid_tpu_torch.engine.kernels import build, tail_plan
-from mettagrid_tpu_torch.engine.kernels.tail_plan import MAX_SMEM
+from mettagrid_tpu_torch.engine.kernels.tail_plan import MAX_SMEM  # noqa: F401 (the obs route's and B7's limit)
 from mettagrid_tpu_torch.engine.program import GLOBAL_LOCATION
 
 EMPTY_WORD = 0xFFFFFF
 
 
 def staged_smem_bytes(HP: int, WPC: int, K: int, S: int) -> int:
-    """Shared memory of a kernel that stages one env's image int32[HP, WPC]
-    and the three candidate tables of K*S entries (B1, B2, B4)."""
+    """Shared memory of B4's one-block-per-env kernel, which stages one
+    env's image int32[HP, WPC] and the three candidate tables of K*S
+    entries."""
     return (HP * WPC + 3 * K * S) * 4
 
 
@@ -125,9 +126,9 @@ def obs_tail_static_v2_ref(static_imgp, map_idx, row0, lane0, rext, lext, words,
 
 
 def check_static_inputs(name, static_imgp, map_idx, row0, lane0, rext, lext, words, front, geom, out_w):
-    """The checks B1's and B4's wrappers share: one device, int32,
-    contiguous, matching shapes, non-empty, an image that B1's staging loads
-    and that fits shared memory with the tables."""
+    """The checks the wrappers of B1, B4 and B6a share: one device, int32,
+    contiguous, matching shapes, non-empty, an image that their staging
+    loads (whole 16-byte rows, 16-byte aligned)."""
     dev = static_imgp.device
     named = dict(
         static_imgp=static_imgp, map_idx=map_idx, row0=row0, lane0=lane0, rext=rext,
@@ -156,19 +157,6 @@ def check_static_inputs(name, static_imgp, map_idx, row0, lane0, rext, lext, wor
         raise ValueError(f"{name}: empty pool, batch, agent set, slot set or output")
     if (HP * WPC) % 4 or static_imgp.data_ptr() % 16:
         raise ValueError(f"{name}: the image must be a whole number of 16-byte rows, 16-byte aligned")
-    smem = staged_smem_bytes(HP, WPC, K, S)
-    if smem > MAX_SMEM:
-        raise ValueError(f"{name}: image + tables need {smem} bytes of shared memory (> {MAX_SMEM})")
-
-
-def check_bulk_rows(name, out_w: int, G: int):
-    """The persistent tails' own limits (B1, B2): rows stored by bulk copy
-    are whole 16-byte units, and every global word lies in the first round
-    of candidates."""
-    if out_w % 4:
-        raise ValueError(f"{name}: out_w = {out_w} is not a multiple of 4 (rows are stored in 16-byte units)")
-    if G > 32:
-        raise ValueError(f"{name}: {G} global words (at most 32)")
 
 
 def launch(lib, name: str, plans, E: int, device, args) -> dict:
@@ -214,14 +202,16 @@ def launch_plans(plans, static_imgp, map_idx, row0, lane0, rext, lext, words, gp
     """The CUDA kernel on CUDA tensors with the best of ``plans`` (None: every
     candidate plan of tail_plan, as the wrapper launches it; one plan to time
     it alone, tools/tail_sweep.py). Returns (words, attempted, the launch's
-    record); counts no launch."""
+    record); counts no launch. Raises where the plans cannot hold the
+    shapes (tail_plan.check_holds)."""
     check_static_inputs("obs_tail_static_v2", static_imgp, map_idx, row0, lane0, rext, lext, words, gplus, geom, out_w)
     P, HP, WPC = static_imgp.shape
     E, A = row0.shape
     S, G, K = words.shape[2], gplus.shape[2], geom.shape[0]
-    check_bulk_rows("obs_tail_static_v2", out_w, G)
     if plans is None:
         plans = tail_plan.candidate_plans("B1", HP, WPC, A, G, K, S, out_w)
+    else:
+        tail_plan.check_holds("B1", plans, HP, WPC, G, S, out_w)
     dev = static_imgp.device
     out = torch.empty((E, A, out_w), dtype=torch.int32, device=dev)
     attempted = torch.empty((E, A), dtype=torch.int32, device=dev)

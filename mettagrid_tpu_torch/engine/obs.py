@@ -45,6 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mettagrid_tpu_torch.engine.kernels import tail_plan
 from mettagrid_tpu_torch.engine.kernels.compact_rows import compact_rows
 from mettagrid_tpu_torch.engine.kernels.obs_tail_dyn_v2 import obs_tail_dyn_v2
 from mettagrid_tpu_torch.engine.kernels.obs_tail_dyn_v3 import obs_tail_dyn_v3
@@ -298,21 +299,53 @@ def pair_rows(img: torch.Tensor, HP2: int):
     return left.contiguous(), right.contiguous()
 
 
-def tail_route(v2_ok: bool, static: bool, fits: bool, fused: bool = True, v3: bool = False) -> str:
+def tail_route(v2_ok: bool, static: bool, fits: bool, fused: bool = True, v3: bool = False,
+               holds: bool = True) -> str:
     """The route of make_obs_fn's table: "nonfused" where no fused tail
     takes the config (``fused`` False: an AOE mask, or window rows wider
     than 128 lanes); with ``v3`` (the v3 tail requested and its gate
     passed) "B6a" or "B6b"; else the tail kernel "B1" to "B5", from the v2
-    gate, the background kind and whether one env's image (its two paired
-    halves for B6a) and the candidate tables fit one block's shared
-    memory."""
+    gate, the background kind and whether the staged kernel fits (``fits``:
+    B1, B2 or B6a have a launch plan, one env's image or paired halves in
+    one block's shared memory; B4 its image and candidate tables). A route
+    to a kernel that reads its image from device memory (B3, B5, B6b) that
+    cannot hold the shapes (``holds`` False: no launch plan) goes to the
+    non-fused path, which serves every shape."""
     if not fused:
         return "nonfused"
     if v3:
-        return "B6a" if static and fits else "B6b"
-    if v2_ok:
-        return ("B1" if static else "B2") if fits else "B3"
-    return "B4" if static and fits else "B5"
+        route = "B6a" if static and fits else "B6b"
+    elif v2_ok:
+        route = ("B1" if static else "B2") if fits else "B3"
+    else:
+        route = "B4" if static and fits else "B5"
+    return route if route in ("B1", "B2", "B4", "B6a") or holds else "nonfused"
+
+
+def gate_route(v2_ok: bool, static: bool, fused: bool, v3: bool, A: int, G: int, K: int, S: int, HP: int, WPC: int,
+               HP2: int, out_w: int, max_smem: int = None) -> str:
+    """make_obs_fn's route from the shapes alone (tail_route): the image
+    int32[HP, WPC] (on the v3 routes its paired halves, 2*HP2 rows each),
+    A agents, G global lanes, K window cells of S slots and out_w words per
+    row. A staged kernel (B1, B2, B6a) fits where it has a launch plan
+    (tail_plan.holds, at least one stage and one warp's rows within
+    ``max_smem``, MAX_SMEM by default); B4 where its image and candidate
+    tables fit. B3, B5 and B6b hold where they have a launch plan within the
+    card's shared memory. Never depends on the card or the plan it would
+    pick."""
+    max_smem = MAX_SMEM if max_smem is None else max_smem
+    if v3:
+        staged, device, rows = "B6a", "B6b", 2 * HP2
+    elif v2_ok:
+        staged, device, rows = ("B1" if static else "B2"), "B3", HP
+    else:
+        staged, device, rows = None, "B5", HP
+    if staged is None:
+        fits = staged_smem_bytes(HP, WPC, K, S) <= max_smem
+    else:
+        fits = tail_plan.holds(staged, rows, WPC, A, G, K, S, out_w, max_smem=max_smem)
+    holds = tail_plan.holds(device, rows, WPC, A, G, K, S, out_w)
+    return tail_route(v2_ok, static, fits, fused, v3, holds)
 
 
 def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=None, obs_tail: str = "auto"):
@@ -351,11 +384,18 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
     The v2 gate wants always-valid globals (no local position, no value
     observations), feature ids that fit its packing and a window of at most
     16 rows; the v1 tail (B4, B5) takes the rest whose window rows are at
-    most 128 lanes wide (OW * S <= 128). An image fits a block when one env's
-    padded image and the candidate tables need at most the 232,448 bytes of
-    shared memory an H100 block may use (MAX_SMEM); B3 and B5 take an image
-    built beforehand in device memory instead (B5 stages it where its
-    launch plan fits, engine/kernels/tail_plan.py).
+    most 128 lanes wide (OW * S <= 128). An image fits a block when the
+    staged kernel has a launch plan for it within the 232,448 bytes of
+    shared memory an H100 block may use (MAX_SMEM): for B1, B2 and B6a at
+    least one stage of the image (or paired halves) and agent tables and
+    one warp's row buffers (engine/kernels/tail_plan.py); for B4, whose
+    blocks each take one env, its image and candidate tables. B3 and B5 take
+    an image built beforehand in device memory instead (B5 stages it where
+    its launch plan fits). Where B3, B5 or B6b has no launch plan for the
+    shapes (more than 32 global lanes, window offsets that do not pack, more
+    candidates than its largest compiled round count), the route is the
+    non-fused path (gate_route), so every config the fused gates admit runs
+    on the card.
 
     obs_buf: optional carried uint8[E, A, T, 3] buffer from the previous
     step or reset. On the v2 and v3 routes (B1-B3, B6a, B6b) token ranks at
@@ -446,11 +486,7 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
     HP2 = (((H - 1) // 2 + 16) + 7) // 8 * 8
     v3 = obs_tail == "v3" and v2_ok and not wide and 2 * OWS <= 128 and OH <= 15 and hr >= 1
     static = static_bg is not None
-    if v3:
-        fits = staged_smem_bytes(2 * 2 * HP2, WPC_f, K, S) <= MAX_SMEM
-    else:
-        fits = staged_smem_bytes(HP_f, WPC_f, K, S) <= MAX_SMEM
-    route = tail_route(v2_ok, static, fits, fused, v3)
+    route = gate_route(v2_ok, static, fused, v3, A, GP, K, S, HP_f, WPC_f, HP2, OUT_W if v2_ok else T_pad)
 
     dev = static_bg.device if static else resolve_device(device)
     geom = torch.from_numpy(
