@@ -43,8 +43,8 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
    but rng must be byte-equal;
 10. arena_lp (the flagship with local-position tokens, absent on the spawn
     cell): kernel B4 against its plain version on the live state after 12
-    steps, then the main path (8 warm-up, 32 timed steps) with B4's launches
-    counted from 0;
+    steps, timed, with its launch plan, then the main path (8 warm-up, 32
+    timed steps) with B4's launches counted from 0;
 11. general_lp (the general config with local-position tokens): the same
     for kernel B5 over the per-env image built from every object;
 12. arena_128 (the flagship on 128x128 maps, whose image is too large to
@@ -96,13 +96,16 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
     that fit one stage but not two, so both the staged-ahead and the
     single-stage modes run; prints each launch's grid, warps per block,
     stages, shared memory, registers and blocks per SM;
-22. B5 and B6b against their plain versions on seeded synthetic inputs,
-    word for word, in every mode (B5: its image staged with two stages and
-    with one, and read from device memory; B6b: its halves read from device
+22. B4, B5 and B6b against their plain versions on seeded synthetic
+    inputs, word for word, in every mode (B4: its pooled map staged, one
+    stage, its rows at a pitch rounded up to 16 bytes and sliced to out_w;
+    B5: its image staged with two stages and with
+    one, and read from device memory; B6b: its halves read from device
     memory): the wrapper's own plan and the plan of every other mode that
     fits, at 1, 7, 133 and 4099 envs, with windows crossing the image edge,
-    an out_w below the valid count (B5's not a multiple of 4), globals
-    absent a third of the time (B5), windows starting on even and on odd
+    an out_w below the valid count (B4's and B5's not a multiple of 4),
+    globals absent a third of the time (B4, B5), B4 with 53 globals, a B4
+    pool that stages at one block per SM, windows starting on even and on odd
     image rows over halves that are not any image's pairing (B6b), a B5
     image that stages at one block per SM, and one too large to stage;
     prints each launch's plan and its time by CUDA events;
@@ -118,13 +121,17 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
 24. the launch limits: the GPU path against the CPU path on the general
     config with token values in base 10 (9 token slots per cell, 1092
     candidates: B5 at 35 rounds, 23 of them from shared memory; 64 envs,
-    pool 3, 24 steps, every output and state field but rng byte-equal); B1,
-    B2, B3, B5, B6a and B6b against their plain versions at the largest
-    candidate count the fused route admits (32 globals and 15 window rows
-    of 128 lanes: 1952 candidates, 61 rounds) and at one less (a partial
-    last round), in every mode; and images at
-    the shared-memory edge, routed by the route gate (obs.gate_route) to a
-    kernel with a plan and launched.
+    pool 3, 24 steps, every output and state field but rng byte-equal), and
+    on arena_values (the flagship with value observations in base 10, 53
+    global lanes: B4, its globals past 32 in rounds of their own; the same
+    sizes); B1-B5,
+    B6a and B6b against their plain versions at the largest candidate count
+    the fused route admits to every kind (32 globals and 15 window rows of
+    128 lanes: 1952 candidates, 61 rounds) and at one less (a partial last
+    round), in every mode, and B4 at 53 and 64 globals with that window and
+    with arena_lp's; and images at the shared-memory edge, routed by the
+    route gate (obs.gate_route) to a kernel with a plan (B3, or B5 off the
+    v2 gate) and launched.
 
 Every phase asserts. The line before the last is the kernels' JSON record;
 the last line is {"ok": true, "device": {...}}. With no CUDA device, or
@@ -295,10 +302,11 @@ def _times(rec: dict) -> str:
 
 
 def _plan_note(kernel) -> str:
-    """The launch plan of a persistent tail's last launch (B1, B2, B5, B6b)."""
+    """The launch plan of a persistent tail's last launch (B1-B5, B6a, B6b)."""
     p = kernel.last_launch
     return (f"grid {p['grid']} ({p['blocks_per_sm']} blocks per SM), {p['warps']} warps, {p['mode']} mode, "
-            f"{p['stages']} stage(s), {p['smem_bytes']} bytes of shared memory, {p['registers']} registers")
+            f"{p['stages']} stage(s), {p['smem_bytes']} bytes of shared memory, {p['registers']} registers"
+            + (f", row pitch {p['pitch']} words" if "pitch" in p else ""))
 
 
 def _record(name: str, err: int, kernel_ms: float, call_ms: float, plain_ms: float, bytes_moved: int,
@@ -680,7 +688,8 @@ def _window_geom(torch, OH: int, OW: int):
 
 def _synthetic_tail_args(torch, kind: str, E: int, HP: int, WPC: int, S: int, N: int, seed: int, A: int = 24,
                          G: int = 3, OH: int = 11, OW: int = 11, fill: float = 0.4):
-    """Seeded inputs of B1 ("B1"), B2 ("B2") or B6a ("B6a": a pool of two
+    """Seeded inputs of B1 ("B1"), B4 ("B4": B1's, its globals absent a
+    third of the time), B2 ("B2") or B6a ("B6a": a pool of two
     halves int32[P, HP, WPC] filled independently, so no image's pairing,
     read with windows starting on even and odd image rows) at E envs:
     agents' windows mostly inside the image and a fifth of them anywhere,
@@ -704,13 +713,14 @@ def _synthetic_tail_args(torch, kind: str, E: int, HP: int, WPC: int, S: int, N:
     else:
         crossing = int(((r0 < 0) | (r0 + OH > HP) | lanes_out).sum())
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).cuda()  # noqa: E731
-    args = dict(row0=t(r0), lane0=t(l0), gplus=t(words((E, A, G), 0.9)), geom=_window_geom(torch, OH, OW))
-    if kind in ("B1", "B6a"):
+    front = {"gwords": t(words((E, A, G), 2 / 3))} if kind == "B4" else {"gplus": t(words((E, A, G), 0.9))}
+    args = dict(row0=t(r0), lane0=t(l0), **front, geom=_window_geom(torch, OH, OW))
+    if kind in ("B1", "B4", "B6a"):
         P = 5
-        pool = dict(static_imgp=t(words((P, HP, WPC), fill))) if kind == "B1" else dict(
+        pool = dict(static_imgp=t(words((P, HP, WPC), fill))) if kind != "B6a" else dict(
             static_l=t(words((P, HP, WPC), fill)), static_r=t(words((P, HP, WPC), fill)))
         # B6a's agents sit on image row 1 or below (the pairing holds no row 0).
-        rext = r0 + OH // 2 if kind == "B1" else np.maximum(r0 + OH // 2, 1)
+        rext = r0 + OH // 2 if kind != "B6a" else np.maximum(r0 + OH // 2, 1)
         args.update(**pool, map_idx=t(rng.integers(0, P, E)), rext=t(rext), lext=t(l0 + (OW // 2) * S),
                     words=t(words((E, A, S), 0.7)))
     else:
@@ -804,20 +814,26 @@ def _synthetic_window_args(torch, kind: str, E: int, HP: int, WPC: int, S: int, 
 
 
 def _per_env_tails(torch):
-    """Phase 22: B5 and B6b against their plain versions on seeded synthetic
-    inputs, in every mode (the wrapper's plan, then the plan of each other
-    stage count that fits and holds, launched alone), at E below, near and above the persistent grid,
-    windows crossing the image edge, dropped ranks (B5 at an out_w that is
-    not a multiple of 4), absent globals (B5), both window parities over
-    halves that no image pairs (B6b), a B5 image that stages at one block
-    per SM (40x768) and one too large to stage (144x512). Prints each
-    launch's plan and its time (CUDA events, the mean of 20 launches after
-    one warm-up)."""
-    from mettagrid_tpu_torch.engine.kernels import obs_tail_dyn_v3, obs_tail_v1
+    """Phase 22: B4, B5 and B6b against their plain versions on seeded
+    synthetic inputs, in every mode (the wrapper's plan, then the plan of
+    each other stage count that fits and holds, launched alone; B4's rows at
+    a pitch rounded up to 16 bytes), at E below, near and above the
+    persistent grid, windows crossing
+    the image edge, dropped ranks (B4 and B5 at an out_w that is not a
+    multiple of 4), absent globals (B4, B5), B4 at arena_lp's 48x128 pool
+    with 5 globals, and with 53 (value observations: globals past the first
+    round), B4 at a 40x768 pool that stages at one block per SM, both window
+    parities over halves that no image pairs (B6b), a B5 image that stages
+    at one block per SM (40x768) and one too large to stage (144x512).
+    Prints each launch's plan and its time (CUDA events, the mean of 20
+    queued launches after one warm-up)."""
+    from mettagrid_tpu_torch.engine.kernels import obs_tail_dyn_v3, obs_tail_static_v1, obs_tail_v1
 
-    mods = {"B5": obs_tail_v1, "B6b": obs_tail_dyn_v3}
+    mods = {"B4": obs_tail_static_v1, "B5": obs_tail_v1, "B6b": obs_tail_dyn_v3}
     # (kind, E, rows of the image or of each half, WPC, S, G, out_w)
-    cases = [("B5", E, 48, 256, 6, 5, 512) for E in (1, 7, 133, 4099)]
+    cases = [("B4", E, 48, 128, 3, 5, 389) for E in (1, 7, 133, 4099)]
+    cases += [("B4", 133, 48, 128, 3, 5, 133), ("B4", 4099, 48, 128, 3, 53, 437), ("B4", 133, 40, 768, 3, 5, 389)]
+    cases += [("B5", E, 48, 256, 6, 5, 512) for E in (1, 7, 133, 4099)]
     cases += [("B5", 133, 48, 256, 6, 5, 133), ("B5", 4099, 40, 768, 6, 5, 512), ("B5", 133, 144, 512, 6, 5, 512)]
     cases += [("B6b", E, 64, 256, 4, 3, 384) for E in (1, 7, 133, 4099)]
     cases += [("B6b", 133, 64, 256, 4, 3, 128)]
@@ -826,21 +842,26 @@ def _per_env_tails(torch):
         mod = mods[kind]
         name = mod.__name__.rsplit(".", 1)[1]
         kernel, plain = getattr(mod, name), getattr(mod, f"{name}_ref")
-        args, crossing, note = _synthetic_window_args(torch, kind, E, HP, WPC, S, G, seed=2200 + i)
+        if kind == "B4":
+            args, crossing = _synthetic_tail_args(torch, "B4", E, HP, WPC, S, 0, seed=2200 + i, G=G)
+            note = f"{int((args['gwords'] == 0).sum())} absent globals"
+        else:
+            args, crossing, note = _synthetic_window_args(torch, kind, E, HP, WPC, S, G, seed=2200 + i)
         ref_w, ref_a = plain(**args, out_w=out_w)
         records = _forced_records(torch, mod, kind, kernel, args, dict(out_w=out_w), HP, WPC, S, G, out_w)
         _check_records(torch, kind, records, ref_w, ref_a, f"case {i}")
         dropped = int((ref_a - out_w).clamp(min=0).sum())
         for how, _, _, plan, ms in records:
             ran.add((kind, plan["stages"]))
-            print(f"[22] {kind} equal to its plain version: E {E}, {'image' if kind == 'B5' else 'halves'} {HP}x{WPC}, "
+            shape = {"B4": "pool", "B5": "image", "B6b": "halves"}[kind]
+            print(f"[22] {kind} equal to its plain version: E {E}, {shape} {HP}x{WPC}, "
                   f"S {S}, G {G}, out_w {out_w}; {crossing} windows cross the image edge, {dropped} ranks dropped, "
                   f"{note}; {how} plan: {_plan_text(plan)}; {ms:.4f} ms", flush=True)
         assert crossing > 0 or E < 7, "no window crosses the image edge"
         if out_w < 256:
             assert dropped > 0, "no rank was dropped"
         del args, records, ref_w, ref_a
-    want = {("B5", 0), ("B5", 1), ("B5", 2), ("B6b", 0)}
+    want = {("B4", 1), ("B5", 0), ("B5", 1), ("B5", 2), ("B6b", 0)}
     assert ran == want, f"modes run: {sorted(ran)}"
 
 
@@ -849,7 +870,7 @@ def _forced_records(torch, mod, kind: str, kernel, args: dict, call: dict, HP: i
     """The wrapper's launch of ``kernel`` on ``args``, then one launch under
     the plan of each other stage count of ``kind`` that fits and holds
     (``mod.launch_plans([plan])``): a list of (how, words, attempted, the
-    launch's record, ms by CUDA events over ``reps`` launches)."""
+    launch's record, ms by CUDA events over ``reps`` queued launches)."""
     from mettagrid_tpu_torch.engine.kernels import tail_plan
 
     A, K = args["row0"].shape[1], args["geom"].shape[0]
@@ -878,7 +899,8 @@ def _plan_text(plan: dict) -> str:
     """A launch's record (the wrappers' ``last_launch``) as text."""
     return (f"{plan['mode']} mode, {plan['stages']} stage(s), grid {plan['grid']} ({plan['blocks_per_sm']} blocks per "
             f"SM on {plan['sms']} SMs), {plan['warps']} warps per block, {plan['smem_bytes']} bytes of shared memory, "
-            f"{plan['registers']} registers, {plan['rounds']} rounds")
+            f"{plan['registers']} registers, {plan['rounds']} rounds"
+            + (f", row pitch {plan['pitch']} words" if "pitch" in plan else ""))
 
 
 def _b3_b6a_tails(torch):
@@ -939,17 +961,20 @@ def _token_base_10(cfg):
     cfg.game.obs.token_value_base = 10
 
 
+
 def _launch_limits(torch):
     """Phase 24: the general config in base 10 on the card against the CPU
-    path, with B5 at 35 rounds; every persistent kernel against its plain
-    version at the fused route's largest candidate count and one less (a
-    partial last round), in every mode; and images at the shared-memory edge
+    path, with B5 at 35 rounds, and arena_values (53 global lanes, B4);
+    every persistent kernel against its plain version at the fused route's
+    largest candidate count and one less (a partial last round), in every
+    mode, and B4 at 53 and 64 globals; and images at the shared-memory edge
     routed by obs.gate_route and launched."""
     from mettagrid_tpu_torch.engine import obs as tobs
     from mettagrid_tpu_torch.engine.kernels import (
         obs_tail_dyn_v2,
         obs_tail_dyn_v3,
         obs_tail_dynobj_v2,
+        obs_tail_static_v1,
         obs_tail_static_v2,
         obs_tail_static_v3,
         obs_tail_v1,
@@ -964,57 +989,80 @@ def _launch_limits(torch):
           f"{tobs.make_stage1(program).num_slots}) over 24 steps of 64 envs, pool of 3 maps, with auto-resets and "
           f"events; B5 launched {obs_tail_v1.obs_tail_v1.launches - before} times, last plan: {_plan_text(rec)}",
           flush=True)
+    b4 = obs_tail_static_v1.obs_tail_static_v1
+    before = b4.launches
+    program, _ = _gpu_vs_cpu(torch, "arena_values", 3, 64, 24, 16)
+    G = tobs.make_obs_fn(program, None, "cpu").tail_shapes["G"]
+    assert b4.launches > before and G == 53, f"arena_values ran B4 {b4.launches - before} times"
+    print(f"[24] GPU path equals the CPU path on arena_values (the flagship with {G} global lanes: value observations "
+          f"in base 10) over 24 steps of 64 envs, pool of 3 maps, with auto-resets; B4 launched {b4.launches - before} "
+          f"times, last plan: {_plan_text(b4.last_launch)}", flush=True)
 
     # The largest count: 32 globals, then a 15 x 1 window of 128 slots per
-    # cell; with 31 globals the last round holds one dead entry.
+    # cell; with 31 globals the last round holds one dead entry. B4 (v1
+    # rows of any width, laid out at a pitch rounded up to 16 bytes) at an
+    # out_w of partial 16-byte units, and past 32 globals at this window and
+    # at arena_lp's.
     OH, OW, S, E, out_w = 15, 1, 128, 133, 1024
-    kinds = {"B1": obs_tail_static_v2, "B2": obs_tail_dynobj_v2, "B3": obs_tail_dyn_v2, "B5": obs_tail_v1,
-             "B6a": obs_tail_static_v3, "B6b": obs_tail_dyn_v3}
+    kinds = {"B1": obs_tail_static_v2, "B2": obs_tail_dynobj_v2, "B3": obs_tail_dyn_v2, "B4": obs_tail_static_v1,
+             "B5": obs_tail_v1, "B6a": obs_tail_static_v3, "B6b": obs_tail_dyn_v3}
+    cases = [(G, kind, mod, OH, OW, S) for G in (32, 31) for kind, mod in kinds.items()]
+    cases += [(G, "B4", obs_tail_static_v1, oh, ow, s) for G in (53, 64) for oh, ow, s in ((OH, OW, S), (11, 11, 3))]
     ran = set()
-    for i, (G, (kind, mod)) in enumerate((G, km) for G in (32, 31) for km in kinds.items()):
-        cands = G + OH * OW * S
-        assert tail_plan.rounds_for(G, OH * OW, S) == 61 and cands == 1920 + G
+    for i, (G, kind, mod, oh, ow, s) in enumerate(cases):
+        cands = G + oh * ow * s
+        rounds = tail_plan.rounds_for(G, oh * ow, s, kind)
+        assert G > 32 or (rounds == 61 and cands == 1920 + G)
         name = mod.__name__.rsplit(".", 1)[1]
         kernel, plain = getattr(mod, name), getattr(mod, f"{name}_ref")
         HP, WPC = 32, 256
-        if kind in ("B1", "B2", "B6a"):
-            args, _ = _synthetic_tail_args(torch, kind, E, HP, WPC, S, 60, seed=2400 + i, G=G, OH=OH, OW=OW)
+        width = out_w - 3 if kind == "B4" else out_w
+        if kind in ("B1", "B2", "B4", "B6a"):
+            args, _ = _synthetic_tail_args(torch, kind, E, HP, WPC, s, 60, seed=2400 + i, G=G, OH=oh, OW=ow)
         else:
-            args, _, _ = _synthetic_window_args(torch, kind, E, HP, WPC, S, G, seed=2400 + i, OH=OH, OW=OW)
-        call = dict(out_w=out_w, **({"wide": True} if kind in ("B1", "B2", "B3") else {}))
+            args, _, _ = _synthetic_window_args(torch, kind, E, HP, WPC, s, G, seed=2400 + i, OH=oh, OW=ow)
+        call = dict(out_w=width, **({"wide": True} if kind in ("B1", "B2", "B3") else {}))
         ref_w, ref_a = plain(**args, **call)
-        records = _forced_records(torch, mod, kind, kernel, args, call, HP, WPC, S, G, out_w, reps=5)
-        _check_records(torch, kind, records, ref_w, ref_a, f"{cands} candidates")
+        records = _forced_records(torch, mod, kind, kernel, args, call, HP, WPC, s, G, width, reps=5)
+        _check_records(torch, kind, records, ref_w, ref_a, f"{cands} candidates, G {G}")
         for how, _, _, plan, ms in records:
-            assert plan["rounds"] == 61
+            assert plan["rounds"] == rounds
             ran.add((kind, plan["stages"], cands))
-            print(f"[24] {kind} equal to its plain version at {cands} candidates (G {G}, a {OH}x{OW} window, S {S}): "
-                  f"E {E}, image {HP}x{WPC}, out_w {out_w}, {int(ref_a.float().mean())} valid per agent on average; "
+            print(f"[24] {kind} equal to its plain version at {cands} candidates (G {G}, a {oh}x{ow} window, S {s}): "
+                  f"E {E}, image {HP}x{WPC}, out_w {width}, {int(ref_a.float().mean())} valid per agent on average; "
                   f"{how} plan: {_plan_text(plan)}; {ms:.4f} ms", flush=True)
         del args, records, ref_w, ref_a
-    modes = {("B1", 1), ("B1", 2), ("B2", 1), ("B2", 2), ("B3", 0), ("B5", 0), ("B5", 1), ("B5", 2), ("B6a", 1),
-             ("B6b", 0)}
+    modes = {("B1", 1), ("B1", 2), ("B2", 1), ("B2", 2), ("B3", 0), ("B4", 1), ("B5", 0), ("B5", 1), ("B5", 2),
+             ("B6a", 1), ("B6b", 0)}
     want = {(kind, stages, cands) for kind, stages in modes for cands in (1951, 1952)}
-    assert ran == want, f"modes run at 1951 and 1952 candidates: {sorted(ran)}"
+    want |= {("B4", 1, G + c) for G in (53, 64) for c in (1920, 363)}
+    assert ran == want, f"modes run at 1951 and 1952 candidates and B4's past 32 globals: {sorted(ran)}"
 
     # Images at the shared-memory edge that one env's image and the candidate
-    # tables fit, but no launch plan of B1 does: the gate routes them to B3.
+    # tables fit, but no launch plan of B1 does: the gate routes them to B3,
+    # and off the v2 gate (no B4 plan holds them either) to B5.
     for A, HP, WPC, OH, S, out_w in ((128, 88, 640, 11, 3, 256), (96, 88, 640, 11, 3, 512), (64, 448, 128, 5, 1, 128)):
         K = OH * OH
-        assert tobs.staged_smem_bytes(HP, WPC, K, S) <= tail_plan.MAX_SMEM
+        assert (HP * WPC + 3 * K * S) * 4 <= tail_plan.MAX_SMEM  # one image and three candidate tables
         assert not tail_plan.holds("B1", HP, WPC, A, 3, K, S, out_w)
-        route = tobs.gate_route(True, True, True, False, A, 3, K, S, HP, WPC, 0, out_w)
-        assert route == "B3", f"the gate routes {HP}x{WPC} with {A} agents to {route}"
-        args, crossing, _ = _synthetic_window_args(torch, "B3", 133, HP, WPC, S, 3, seed=2500 + A, A=A, OH=OH, OW=OH)
-        call = dict(out_w=out_w, wide=False)
-        got = obs_tail_dyn_v2.obs_tail_dyn_v2(**args, **call)
-        ref = obs_tail_dyn_v2.obs_tail_dyn_v2_ref(**args, **call)
-        torch.cuda.synchronize()
-        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), f"B3 differs at {HP}x{WPC}, {A} agents"
-        print(f"[24] {HP}x{WPC} image, {A} agents, a {OH}x{OH} window, S {S}, out_w {out_w}: one image and the "
-              f"candidate tables fit a block, no B1 plan does; routed to {route}, equal to its plain version "
-              f"({crossing} windows cross the image edge); {_plan_text(obs_tail_dyn_v2.obs_tail_dyn_v2.last_launch)}",
-              flush=True)
+        assert not tail_plan.holds("B4", HP, WPC, A, 3, K, S, out_w)
+        for v2_ok, want_route, mod, name in ((True, "B3", obs_tail_dyn_v2, "obs_tail_dyn_v2"),
+                                             (False, "B5", obs_tail_v1, "obs_tail_v1")):
+            route = tobs.gate_route(v2_ok, True, True, False, A, 3, K, S, HP, WPC, 0, out_w)
+            assert route == want_route, f"the gate routes {HP}x{WPC} with {A} agents to {route}"
+            args, crossing, _ = _synthetic_window_args(torch, route, 133, HP, WPC, S, 3, seed=2500 + A, A=A, OH=OH,
+                                                       OW=OH)
+            call = dict(out_w=out_w, **({"wide": False} if v2_ok else {}))
+            kernel = getattr(mod, name)
+            got = kernel(**args, **call)
+            ref = getattr(mod, f"{name}_ref")(**args, **call)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), \
+                f"{route} differs at {HP}x{WPC}, {A} agents"
+            print(f"[24] {HP}x{WPC} image, {A} agents, a {OH}x{OH} window, S {S}, out_w {out_w}, "
+                  f"{'v2' if v2_ok else 'v1'} words: one image and the candidate tables fit a block, no "
+                  f"{'B1' if v2_ok else 'B4'} plan does; routed to {route}, equal to its plain version ({crossing} "
+                  f"windows cross the image edge); {_plan_text(kernel.last_launch)}", flush=True)
 
 
 def main() -> int:

@@ -1,9 +1,9 @@
-// The persistent-block machinery of kernels B1 (obs_tail_static_v2.cu), B2
-// (obs_tail_dynobj_v2.cu), B3 (obs_tail_dyn_v2.cu), B5 (obs_tail_v1.cu), B6a
+// The persistent-block machinery of the observation tails B1
+// (obs_tail_static_v2.cu), B2 (obs_tail_dynobj_v2.cu), B3
+// (obs_tail_dyn_v2.cu), B4 (obs_tail_static_v1.cu), B5 (obs_tail_v1.cu), B6a
 // (obs_tail_static_v3.cu) and B6b (obs_tail_dyn_v3.cu), for Hopper (sm_90a).
-// They compute the tails of obs_tail.cuh, word for word (B5 the v1 words,
-// the others the v2 words); B4 alone still runs obs_tail.cuh's
-// one-block-per-env tail. This header holds how:
+// They compute the tails of obs_tail.cuh, word for word (B4 and B5 the v1
+// words, the others the v2 words). This header holds how:
 //
 // - a candidate plan in registers (Plan): lane l owns candidates
 //   j = 32 r + l for its R rounds, each packed in one register (the offset
@@ -20,6 +20,11 @@
 //   The offset follows the image's form (Form): a flat image,
 //   or row-paired halves, where window row u lies in half u & 1 at half row
 //   u >> 1 (in shared memory the half's distance is part of the offset);
+// - the globals: at most 32 lie in the first round, each lane's taken from
+//   a register; an instance built with kGlobalRounds (B4, whose globals may
+//   number more, as value observations make them) gives more than 32 global
+//   words rounds of their own ahead of the window's, read from the agent's
+//   table, and plans the window candidates alone;
 // - the window reads (SmemFlat, SmemPaired, DeviceFlat, DevicePaired): a
 //   flat image or paired halves staged in shared memory, or a flat image or
 //   paired halves read from device memory. One bounds test per agent: when
@@ -33,14 +38,15 @@
 //   device memory with cp.async.bulk, so one agent's store overlaps the
 //   compaction of the next (rows that are not whole 16-byte units are
 //   copied out by the warp instead);
-// - the env loops over per-env images (B3, B5, B6b): staged_envs stages
-//   each env's flat image (one bulk copy) onto an mbarrier and its agent
-//   tables by cp.async, the env ahead while the current one runs where two
-//   stages fit (B5); device_envs reads the image from device memory (B3,
-//   B5, B6b), each warp walking its own agents with their tables loaded two
-//   agents ahead and the next agent's window rows prefetched into L2 (B1
-//   and B6a, over a pooled image and the agents' words, keep their own
-//   loops);
+// - the env loops: static_envs (B1, B4) stages each env's pooled map (one
+//   bulk copy, kept in L2) and its agent tables, adds the agents' words in
+//   shared memory, and runs the tails there; over per-env images (B3, B5,
+//   B6b), staged_envs stages each env's flat image (one bulk copy) onto an
+//   mbarrier and its agent tables by cp.async, the env ahead while the
+//   current one runs where two stages fit (B5); device_envs reads the image
+//   from device memory (B3, B5, B6b), each warp walking its own agents with
+//   their tables loaded two agents ahead and the next agent's window rows
+//   prefetched into L2 (B6a, over the paired pool, keeps its own loop);
 // - the mbarrier and 1-D bulk copy (TMA) primitives, and the 4-byte
 //   cp.async (stage_runs) with which the kernels stage tables.
 
@@ -462,12 +468,19 @@ struct V2Pack {
   }
 };
 
-// The v1 word of a valid cell (obs_tail::V1Words). v1 rows may have any
-// width (the reference's budget GP + 128 k).
+// The v1 word of a valid cell (obs_tail.cuh's v1 format), -1 for an empty
+// slot. v1 rows may have any width (the reference's budget GP + 128 k).
 struct V1Pack {
-  static constexpr int kEmpty = obs_tail::V1Words::kEmpty;
+  static constexpr int kEmpty = -1;
   static constexpr bool kAnyWidth = true;
   __device__ __forceinline__ int operator()(int cell, unsigned loc) const { return (cell - 1) | (int)(loc << 16); }
+};
+
+// The v1 words in rows laid out at a pitch of whole 16-byte units (B4's
+// wrapper rounds the pitch up): every row is bulk-stored, as v2 rows are.
+struct V1WholeRows : V1Pack {
+  static constexpr bool kAnyWidth = false;
+  __device__ explicit V1WholeRows(int = 0) {}
 };
 
 // ---- one agent's row ----
@@ -526,13 +539,15 @@ __device__ __forceinline__ void rounds(const P& plan, int gword, Load load, Emit
 // for a format of any width, by the warp where out_w % 4 != 0: a branch
 // that costs the v2 kernels registers, so they are compiled without it);
 // `nrow` counts the rows this warp stored so far (which buffer is next).
-// Requires G <= 32 (every global in round 0) and, unless Pack::kAnyWidth,
-// out_w % 4 == 0. Drain with bulk_wait_all (lane 0) before the block
-// exits.
-template <class P, class Pack, class Read>
+// Requires G <= 32 (every global in round 0), or kGlobalRounds: then more
+// than 32 globals, the agent's G words `gs`, take rounds of their own ahead
+// of the window's (the plan holds the window candidates alone; gword is 0).
+// Unless Pack::kAnyWidth, out_w % 4 == 0. Drain with bulk_wait_all (lane 0)
+// before the block exits.
+template <bool kGlobalRounds = false, class P, class Pack, class Read>
 __device__ inline void tail_row(const Pack fmt, const P& plan, const Read& read, int r0, int l0, int gword,
                                 int* __restrict__ out, int* __restrict__ attempted, size_t i, int out_w, int* rows,
-                                unsigned& nrow) {
+                                unsigned& nrow, const int* gs = nullptr, int G = 0) {
   // Rounds whose loads a read from device memory sends before their
   // ballots: all of them up to 16 rounds, else 8.
   constexpr int kB = Read::kAhead ? (P::kRounds > 16 ? 8 : P::kRounds) : 1;
@@ -555,6 +570,11 @@ __device__ inline void tail_row(const Pack fmt, const P& plan, const Read& read,
     const int w = fmt(cell, (en >> 22) & 0xFFu);
     if (ok && rank < out_w) sts(row_s + 4u * (unsigned)rank, w);
   };
+  if constexpr (kGlobalRounds) {
+    if (G > 32) {
+      for (int j0 = 0; j0 < G; j0 += 32) emit(j0 + lane < G ? gs[j0 + lane] : 0, obs_tail::kGlobalLocation << 22);
+    }
+  }
   if (read.inside(r0, l0, plan.win_rows, plan.win_lanes)) {
     // The whole window lies inside the image: one load per candidate.
     const auto c = read.corner(r0, l0);
@@ -588,9 +608,10 @@ __device__ inline void tail_row(const Pack fmt, const P& plan, const Read& read,
 // tail_row for every agent of one env, warp w taking agents w, w + warps,
 // ...: the env's window corners `row0`, `lane0` [A] and globals `gplus`
 // [A, G] (staged in shared memory by the caller, or in device memory), its
-// output rows `out` [A, out_w] and counts `attempted` [A]. Call after a
-// __syncthreads that follows the last write to a staged image and tables.
-template <class P, class Pack, class Read>
+// output rows `out` [A, out_w] and counts `attempted` [A] (kGlobalRounds:
+// as tail_row's). Call after a __syncthreads that follows the last write to
+// a staged image and tables.
+template <bool kGlobalRounds = false, class P, class Pack, class Read>
 __device__ inline void agents_bulk(const Pack fmt, const P& plan, const Read& read, const int* row0,
                                    const int* lane0, const int* gplus, int* __restrict__ out,
                                    int* __restrict__ attempted, int A, int G, int out_w, int* rows, unsigned& nrow) {
@@ -598,8 +619,14 @@ __device__ inline void agents_bulk(const Pack fmt, const P& plan, const Read& re
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   for (int a = warp; a < A; a += nwarps) {
-    const int gword = lane < G ? gplus[a * G + lane] : 0;
-    tail_row(fmt, plan, read, row0[a], lane0[a], gword, out, attempted, a, out_w, rows, nrow);
+    if constexpr (kGlobalRounds) {
+      const int* gs = gplus + a * G;
+      const int gword = G <= 32 && lane < G ? gs[lane] : 0;
+      tail_row<true>(fmt, plan, read, row0[a], lane0[a], gword, out, attempted, a, out_w, rows, nrow, gs, G);
+    } else {
+      const int gword = lane < G ? gplus[a * G + lane] : 0;
+      tail_row(fmt, plan, read, row0[a], lane0[a], gword, out, attempted, a, out_w, rows, nrow);
+    }
   }
 }
 
@@ -622,13 +649,126 @@ __device__ inline void stage_runs(int* dst, const Run (&runs)[kParts]) {
   }
 }
 
+// ---- the env loop over a pooled static image (B1, B4) ----
+
+// The mbarriers ahead of a staged kernel's images (bytes).
+constexpr int kBarrierBytes = 128;
+
+// Persistent blocks over envs e = blockIdx.x, += gridDim.x, each env's image
+// the pooled map static_imgp[map_idx[e]] int32 [HP, WPC] (P maps) plus every
+// agent's S words added at (rext, lext + s). With kStages > 1 a block stages
+// the env kStages - 1 ahead while it runs the current one: one thread copies
+// its pooled map with one bulk copy onto that stage's mbarrier, marked to
+// stay in L2 (every env reads one of the same few maps), and every thread
+// copies the env's agent tables (window corners, agent positions and words,
+// globals) with cp.async; with one stage the block stages each env just
+// before its tail. The agents' words are added with shared atomics once the
+// copies have landed (agents never share a cell; the atomics keep the sum
+// the reference computes even if they did). kGlobalRounds: globals past the
+// first round (tail_row), and the plan holds the window candidates alone
+// where there are more than 32. Shared memory: an mbarrier per stage (128
+// bytes reserved), the image buffers [kStages][HP * WPC], the agent tables
+// [kStages][A * (4 + S + G)] (row0, lane0, rext, lext, words, gplus; padded
+// to 16 bytes), then each warp's two row buffers (and, with kMore, the
+// plan's entries past its register rounds, at the end). The words are
+// packed by Pack(wide), a format of whole rows (out_w % 4 == 0). A map_idx
+// outside [0, P) fails a device assert, like PyTorch's own index kernels,
+// instead of reading another map.
+template <int R, int kStages, bool kMore, bool kGlobalRounds, class Pack>
+__device__ inline void static_envs(int wide, const int* __restrict__ static_imgp,
+                                   const int* __restrict__ map_idx, const int* __restrict__ row0,
+                                   const int* __restrict__ lane0, const int* __restrict__ rext,
+                                   const int* __restrict__ lext, const int* __restrict__ words,
+                                   const int* __restrict__ gplus, const int* __restrict__ geom,
+                                   int* __restrict__ out, int* __restrict__ attempted, int P, int E, int HP, int WPC,
+                                   int A, int S, int G, int K, int out_w, unsigned char* smem) {
+  static_assert(!Pack::kAnyWidth, "static_envs bulk-stores whole rows");
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  const int n_img = HP * WPC;
+  const unsigned img_bytes = (unsigned)n_img * 4u;
+  const int n_tab = ((A * (4 + S + G)) + 3) & ~3;
+  const unsigned mS = divisor_magic(S);
+  int* imgs = reinterpret_cast<int*>(smem + kBarrierBytes);
+  int* tabs = imgs + kStages * n_img;
+  const int tid = threadIdx.x;
+  int* rows = tabs + kStages * n_tab + (tid >> 5) * 2 * out_w;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&bar[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  Plan<R, kMore> plan;
+  plan.build(geom, kGlobalRounds && G > 32 ? 0 : G, K, S, WPC, smem);
+
+  // Every thread: env `env`'s agent tables into stage s with cp.async (one
+  // group); thread 0: its pooled map with a bulk copy onto bar[s].
+  auto stage = [&](int env, int s) {
+    const size_t ea0 = (size_t)env * A;
+    const Run runs[6] = {{row0 + ea0, A}, {lane0 + ea0, A}, {rext + ea0, A},
+                         {lext + ea0, A}, {words + ea0 * S, A * S}, {gplus + ea0 * G, A * G}};
+    stage_runs(tabs + s * n_tab, runs);
+    cp_async_commit();
+    if (tid == 0) {
+      const int m = map_idx[env];
+      if (m < 0 || m >= P) {
+        printf("obs tail: map_idx[%d] = %d is outside [0, %d)\n", env, m, P);
+        assert(m >= 0 && m < P);
+      }
+      fence_proxy_async();
+      bulk_load(imgs + s * n_img, static_imgp + (size_t)m * n_img, img_bytes, &bar[s]);
+    }
+  };
+  // The first kStages - 1 envs of this block, ahead of the loop.
+  for (int i = 0; i + 1 < kStages; ++i) {
+    if ((int)blockIdx.x + i * (int)gridDim.x < E) stage(blockIdx.x + i * gridDim.x, i);
+  }
+
+  const Pack fmt(wide);
+  unsigned nrow = 0;
+  int it = 0;
+  for (int e = blockIdx.x; e < E; e += gridDim.x, ++it) {
+    const int s = it % kStages;
+    // The stage kStages - 1 envs ahead was last read before the previous
+    // env's closing __syncthreads: stage that env there now, then wait for
+    // this one (with one stage, stage it now and wait).
+    const int e_ahead = e + (kStages - 1) * gridDim.x;
+    if (e_ahead < E) {
+      stage(e_ahead, (it + kStages - 1) % kStages);
+      cp_async_wait<kStages - 1>();
+    } else {
+      cp_async_wait_all();
+    }
+    int* img = imgs + s * n_img;
+    const int* tab = tabs + s * n_tab;
+    mbar_wait(&bar[s], (it / kStages) & 1);
+    __syncthreads();
+
+    // ---- add the agents' words ----
+    const int* t_rext = tab + 2 * A;
+    const int* t_lext = tab + 3 * A;
+    const int* t_words = tab + 4 * A;
+    for (int t = tid; t < A * S; t += blockDim.x) {
+      const int a = div_by(t, S, mS);
+      const int r = t_rext[a];
+      const int l = t_lext[a] + (t - a * S);
+      if (r >= 0 && r < HP && l >= 0 && l < WPC) atomicAdd(&img[r * WPC + l], t_words[t]);
+    }
+    __syncthreads();
+    const size_t ea0 = (size_t)e * A;
+    agents_bulk<kGlobalRounds>(fmt, plan, SmemFlat{img, HP, WPC}, tab, tab + A, t_words + A * S, out + ea0 * out_w,
+                               attempted + ea0, A, G, out_w, rows, nrow);
+    __syncthreads();
+  }
+  if ((tid & 31) == 0) bulk_wait_all();
+}
+
 // ---- env loops over per-env images (B3, B5, B6b) ----
 
 // Shared memory of staged_envs (bytes): the mbarriers, per stage the env's
 // image and its agent tables, then each warp's two row buffers (and, with
 // kMore, the plan's entries past its register rounds at the end).
 // tail_plan.smem_bytes computes the same on the host.
-constexpr int kBarrierBytes = 128;
 
 __device__ __forceinline__ int staged_tables_words(int A, int G) { return (A * (2 + G) + 3) & ~3; }
 

@@ -17,7 +17,8 @@
 // handful of integer operations, so the kernel must keep the stores flowing
 // and spend few instructions per candidate.
 //
-// What the design does about it (obs_tail_bulk.cuh): persistent blocks, each
+// What the design does about it (obs_tail_bulk.cuh, static_envs, whose body
+// B4 shares in the v1 words): persistent blocks, each
 // walking envs e = blockIdx.x, += gridDim.x. With kStages > 1 a block stages
 // the env kStages - 1 ahead while it runs the current one: one thread copies
 // its pooled image with a 1-D bulk copy (TMA) completing on that stage's
@@ -35,10 +36,8 @@
 // shapes and the card's occupancy (engine/kernels/tail_plan.py). No float
 // arithmetic touches a token word.
 
-#include <assert.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <stdio.h>
 
 #include "obs_tail_bulk.cuh"
 
@@ -58,93 +57,11 @@ __global__ void __launch_bounds__(512, 2) obs_tail_static_v2_kernel(
     int* __restrict__ out,                // [E, A, out_w]
     int* __restrict__ attempted,          // [E, A]
     int P, int E, int HP, int WPC, int A, int S, int G, int K, int out_w, int wide) {
-  // Shared memory: an mbarrier per stage (128 bytes reserved), the image
-  // buffers [kStages][HP * WPC], the agent tables of an env
-  // [kStages][A * (4 + S + G)] (row0, lane0, rext, lext, words, gplus;
-  // padded to 16 bytes), then each warp's two row buffers [2][out_w].
+  // Shared memory: tail_bulk::static_envs's layout.
   extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  const int n_img = HP * WPC;
-  const unsigned img_bytes = (unsigned)n_img * 4u;
-  const int n_tab = ((A * (4 + S + G)) + 3) & ~3;
-  const unsigned mS = tail_bulk::divisor_magic(S);
-  int* imgs = reinterpret_cast<int*>(smem + 128);
-  int* tabs = imgs + kStages * n_img;
-  const int tid = threadIdx.x;
-  int* rows = tabs + kStages * n_tab + (tid >> 5) * 2 * out_w;
-
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) tail_bulk::mbar_init(&bar[s], 1);
-    tail_bulk::mbar_fence_init();
-  }
-  __syncthreads();
-  tail_bulk::Plan<R, kMore> plan;
-  plan.build(geom, G, K, S, WPC, smem);
-
-  // Every thread: env `env`'s agent tables into stage s with cp.async (one
-  // group); thread 0: its pooled image with a bulk copy onto bar[s].
-  // map_idx must lie in [0, P), as the plain version's indexing requires; a
-  // value outside fails a device assert, like PyTorch's own index kernels,
-  // instead of reading another map.
-  auto stage = [&](int env, int s) {
-    const size_t ea0 = (size_t)env * A;
-    const tail_bulk::Run runs[6] = {{row0 + ea0, A}, {lane0 + ea0, A}, {rext + ea0, A},
-                                    {lext + ea0, A}, {words + ea0 * S, A * S}, {gplus + ea0 * G, A * G}};
-    tail_bulk::stage_runs(tabs + s * n_tab, runs);
-    tail_bulk::cp_async_commit();
-    if (tid == 0) {
-      const int m = map_idx[env];
-      if (m < 0 || m >= P) {
-        printf("obs_tail_static_v2: map_idx[%d] = %d is outside [0, %d)\n", env, m, P);
-        assert(m >= 0 && m < P);
-      }
-      tail_bulk::fence_proxy_async();
-      tail_bulk::bulk_load(imgs + s * n_img, static_imgp + (size_t)m * n_img, img_bytes, &bar[s]);
-    }
-  };
-  // The first kStages - 1 envs of this block, ahead of the loop.
-  for (int i = 0; i + 1 < kStages; ++i) {
-    if ((int)blockIdx.x + i * (int)gridDim.x < E) stage(blockIdx.x + i * gridDim.x, i);
-  }
-
-  const tail_bulk::V2Pack fmt(wide);
-  unsigned nrow = 0;
-  int it = 0;
-  for (int e = blockIdx.x; e < E; e += gridDim.x, ++it) {
-    const int s = it % kStages;
-    // The stage kStages - 1 envs ahead was last read before the previous
-    // env's closing __syncthreads: stage that env there now, then wait for
-    // this one (with one stage, stage it now and wait).
-    const int e_ahead = e + (kStages - 1) * gridDim.x;
-    if (e_ahead < E) {
-      stage(e_ahead, (it + kStages - 1) % kStages);
-      tail_bulk::cp_async_wait<kStages - 1>();
-    } else {
-      tail_bulk::cp_async_wait_all();
-    }
-    int* img = imgs + s * n_img;
-    const int* tab = tabs + s * n_tab;
-    tail_bulk::mbar_wait(&bar[s], (it / kStages) & 1);
-    __syncthreads();
-
-    // ---- add the agents' words (agents never share a cell; atomics keep
-    // the sum the reference computes even if they did) ----
-    const int* t_rext = tab + 2 * A;
-    const int* t_lext = tab + 3 * A;
-    const int* t_words = tab + 4 * A;
-    for (int t = tid; t < A * S; t += blockDim.x) {
-      const int a = tail_bulk::div_by(t, S, mS);
-      const int r = t_rext[a];
-      const int l = t_lext[a] + (t - a * S);
-      if (r >= 0 && r < HP && l >= 0 && l < WPC) atomicAdd(&img[r * WPC + l], t_words[t]);
-    }
-    __syncthreads();
-    const size_t ea0 = (size_t)e * A;
-    tail_bulk::agents_bulk(fmt, plan, tail_bulk::SmemFlat{img, HP, WPC}, tab, tab + A, t_words + A * S,
-                           out + ea0 * out_w, attempted + ea0, A, G, out_w, rows, nrow);
-    __syncthreads();
-  }
-  if ((tid & 31) == 0) tail_bulk::bulk_wait_all();
+  tail_bulk::static_envs<R, kStages, kMore, false, tail_bulk::V2Pack>(wide, static_imgp, map_idx, row0, lane0, rext,
+                                                   lext, words, gplus, geom, out, attempted, P, E, HP, WPC, A, S, G,
+                                                   K, out_w, smem);
 }
 
 using KernelFn = void (*)(const int*, const int*, const int*, const int*, const int*, const int*, const int*,

@@ -38,13 +38,6 @@ from mettagrid_tpu_torch.engine.program import GLOBAL_LOCATION
 EMPTY_WORD = 0xFFFFFF
 
 
-def staged_smem_bytes(HP: int, WPC: int, K: int, S: int) -> int:
-    """Shared memory of B4's one-block-per-env kernel, which stages one
-    env's image int32[HP, WPC] and the three candidate tables of K*S
-    entries."""
-    return (HP * WPC + 3 * K * S) * 4
-
-
 def _packing(wide: bool):
     return (14, 0x3F00) if wide else (15, 0x7F00)
 

@@ -1,6 +1,7 @@
 """The launch plan of the persistent tails B1 (obs_tail_static_v2), B2
-(obs_tail_dynobj_v2), B3 (obs_tail_dyn_v2), B5 (obs_tail_v1), B6a
-(obs_tail_static_v3) and B6b (obs_tail_dyn_v3), as functions of the shapes.
+(obs_tail_dynobj_v2), B3 (obs_tail_dyn_v2), B4 (obs_tail_static_v1), B5
+(obs_tail_v1), B6a (obs_tail_static_v3) and B6b (obs_tail_dyn_v3), as
+functions of the shapes.
 
 The kernels (engine/csrc/obs_tail_bulk.cuh) run persistent blocks of
 ``warps`` warps that walk the envs; each warp stores its rows by bulk copy
@@ -10,12 +11,12 @@ compiled bucket at or above ceil((G + K*S) / 32)); past its kind's last
 bucket (LAST_BUCKET) the plan keeps MORE_REGISTER_ROUNDS rounds in
 registers and the rest, 32 entries each, at the end of the block's shared
 memory (plan_bytes). With ``stages`` > 1 a block stages the env ``stages``
-- 1 envs ahead while it runs the current one: B1 its image (bulk copy) and
-agent tables (cp.async), B2 its object and agent tables, B5 its per-env
-image and agent tables; with one stage B1, B5 and B6a (its two paired
-halves by two bulk copies) stage each env just before its tail and B2
-reads the tables from device memory. B1, B5 and B6a keep 128 bytes of
-mbarriers ahead of their images.
+- 1 envs ahead while it runs the current one: B1 its pooled image (bulk
+copy) and agent tables (cp.async), B2 its object and agent tables, B5 its
+per-env image and agent tables; with one stage B1, B4 (B1's kernel in the
+v1 words), B5 and B6a (its two paired halves by two bulk copies) stage each
+env just before its tail and B2 reads the tables from device memory. B1,
+B4, B5 and B6a keep 128 bytes of mbarriers ahead of their images.
 ``stages`` = 0 is the device mode of B3, B5 and B6b: the image (B6b: its
 paired halves) is read from device memory, and shared memory holds the row
 buffers alone. B3 and B6b have the device mode alone.
@@ -43,8 +44,10 @@ MAX_SMEM = 232448
 # further rounds in shared memory: register plans of 48 or 64 rounds spilled
 # even at 255 registers, and 32 register rounds beside the shared ones
 # spilled at 64 and 128 (ptxas on the card, PERF.md). The fused route admits
-# at most 32 globals and 15 window rows of 128 lanes (a location byte packs
-# window rows 0-14): 1952 candidates, 61 rounds.
+# 15 window rows of 128 lanes at most (a location byte packs window rows
+# 0-14), and every kind but B4 at most 32 globals: 1952 candidates, 61
+# rounds. B4 runs more than 32 globals in rounds of their own, ahead of a
+# plan of the window candidates alone (rounds_for).
 ROUND_BUCKETS = (4, 8, 12, 16, 24, 32)
 MORE_REGISTER_ROUNDS = 12
 # The last register bucket of the kinds that stop before ROUND_BUCKETS[-1]:
@@ -57,12 +60,13 @@ WARPS = 12
 MAX_WARPS = 16
 # Stage counts each kernel is compiled for, most first: one or two (a
 # deeper pipeline did not pay on the bench shapes; B6a one, since its two
-# halves per stage left two stages slower wherever they fit, PERF.md), and 0
-# for the device mode of B3, B5 and B6b.
-STAGE_COUNTS = {"B1": (2, 1), "B2": (2, 1), "B3": (0,), "B5": (2, 1, 0), "B6a": (1,), "B6b": (0,)}
+# halves per stage left two stages slower wherever they fit, and B4 one,
+# since its rows of GP + 128 k words left two stages slower at every warp
+# count measured, PERF.md), and 0 for the device mode of B3, B5 and B6b.
+STAGE_COUNTS = {"B1": (2, 1), "B2": (2, 1), "B3": (0,), "B4": (1,), "B5": (2, 1, 0), "B6a": (1,), "B6b": (0,)}
 # The kinds that read their image from device memory only.
 DEVICE_ONLY = ("B3", "B6b")
-# The mbarriers of B1, B5 and B6a, ahead of their image buffers.
+# The mbarriers of B1, B4, B5 and B6a, ahead of their image buffers.
 BARRIER_BYTES = 128
 # A plan entry's offset field: offsets below 2^18, in bytes for an image in
 # shared memory and in words for one in device memory (obs_tail_bulk.cuh
@@ -89,9 +93,11 @@ def _last_bucket(kind: str) -> int:
 
 def rounds_for(G: int, K: int, S: int, kind: str = "") -> int:
     """The rounds of 32 candidates that hold the G globals and the K*S
-    window candidates in kernel ``kind``: the smallest compiled bucket that
-    does, or, past the kind's last, the rounds needed (plan_bytes)."""
-    need = -(-(G + K * S) // 32)
+    window candidates in kernel ``kind``'s plan: the smallest compiled
+    bucket that does, or, past the kind's last, the rounds needed
+    (plan_bytes). B4's plan holds the window candidates alone where G > 32
+    (its globals then take ceil(G / 32) rounds of their own ahead of them)."""
+    need = -(-(K * S if kind == "B4" and G > 32 else G + K * S) // 32)
     return next((r for r in ROUND_BUCKETS if need <= r <= _last_bucket(kind)), need)
 
 
@@ -108,9 +114,9 @@ def _pad4(n: int) -> int:
 
 def smem_bytes(kind: str, stages: int, warps: int, HP: int, WPC: int, out_w: int, A: int, G: int, S: int,
                N: int = 0, rounds: int = 0) -> int:
-    """Dynamic shared memory of one block of kernel ``kind``: B1's
-    mbarriers, and per stage an image and an env's agent tables (row0,
-    lane0, rext, lext, words, gplus); B6a the same with two paired halves
+    """Dynamic shared memory of one block of kernel ``kind``: B1's and
+    B4's mbarriers, and per stage an image and an env's agent tables (row0,
+    lane0, rext, lext, words, globals); B6a the same with two paired halves
     of HP rows each in place of the image; B2's image and, with more than
     one stage, per stage an env's tables (rext, lext, words, row0, lane0,
     gplus); staged B5 the mbarriers and per stage the env's image and agent
@@ -121,7 +127,7 @@ def smem_bytes(kind: str, stages: int, warps: int, HP: int, WPC: int, out_w: int
     (plan_bytes)."""
     img = HP * WPC * 4
     rows = warps * 2 * _pad4(out_w) * 4 + plan_bytes(rounds, kind)  # with the plan's entries past the registers
-    if kind in ("B1", "B6a"):
+    if kind in ("B1", "B4", "B6a"):
         halves = 2 if kind == "B6a" else 1
         return BARRIER_BYTES + stages * (halves * img + _pad4(A * (4 + S + G)) * 4) + rows
     if kind == "B2":
@@ -152,16 +158,17 @@ def refusal(kind: str, plan: "TailPlan", HP: int, WPC: int, G: int, S: int, out_
     """Why ``plan`` of kernel ``kind`` cannot hold the shapes, or None where
     it can: a staged plan of a kind that reads device memory only (B3,
     B6b), more than 32 globals (every global lies in the first round of
-    candidates), v2 rows that are not whole 16-byte units (they are
-    bulk-stored; B5's v1 rows of any width are not), window offsets that do
+    candidates; B4 alone gives globals past 32 rounds of their own), v2
+    rows that are not whole 16-byte units (they are bulk-stored; B4's and
+    B5's v1 rows of any width are not), window offsets that do
     not pack in a plan entry, or a staged image (B6a: each half) that is not
     whole 16-byte units. For B6a and B6b, HP is the rows of each paired
     half."""
     if kind in DEVICE_ONLY and plan.stages:
         return f"{kind}: reads its image from device memory (stages 0, not {plan.stages})"
-    if G > 32:
+    if G > 32 and kind != "B4":
         return f"{kind}: {G} global words (at most 32)"
-    if kind != "B5" and out_w % 4:
+    if kind not in ("B4", "B5") and out_w % 4:
         return f"{kind}: out_w = {out_w} is not a multiple of 4 (rows are stored in 16-byte units)"
     if max_offset(kind, plan.stages, WPC, S, HP) >= OFFSET_LIMIT:
         unit = "bytes" if plan.stages else "words"

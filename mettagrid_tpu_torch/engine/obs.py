@@ -51,12 +51,7 @@ from mettagrid_tpu_torch.engine.kernels.obs_tail_dyn_v2 import obs_tail_dyn_v2
 from mettagrid_tpu_torch.engine.kernels.obs_tail_dyn_v3 import obs_tail_dyn_v3
 from mettagrid_tpu_torch.engine.kernels.obs_tail_dynobj_v2 import obs_tail_dynobj_v2
 from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v1 import obs_tail_static_v1
-from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import (
-    MAX_SMEM,
-    add_words,
-    obs_tail_static_v2,
-    staged_smem_bytes,
-)
+from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import MAX_SMEM, add_words, obs_tail_static_v2
 from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v3 import obs_tail_static_v3
 from mettagrid_tpu_torch.engine.kernels.obs_tail_v1 import obs_tail_v1
 from mettagrid_tpu_torch.engine.kernels.window_slices import window_slices
@@ -306,11 +301,11 @@ def tail_route(v2_ok: bool, static: bool, fits: bool, fused: bool = True, v3: bo
     than 128 lanes); with ``v3`` (the v3 tail requested and its gate
     passed) "B6a" or "B6b"; else the tail kernel "B1" to "B5", from the v2
     gate, the background kind and whether the staged kernel fits (``fits``:
-    B1, B2 or B6a have a launch plan, one env's image or paired halves in
-    one block's shared memory; B4 its image and candidate tables). A route
-    to a kernel that reads its image from device memory (B3, B5, B6b) that
-    cannot hold the shapes (``holds`` False: no launch plan) goes to the
-    non-fused path, which serves every shape."""
+    B1, B2, B4 or B6a have a launch plan, one env's image or paired halves
+    in one block's shared memory). A route to a kernel that reads its image
+    from device memory (B3, B5, B6b) that cannot hold the shapes (``holds``
+    False: no launch plan) goes to the non-fused path, which serves every
+    shape."""
     if not fused:
         return "nonfused"
     if v3:
@@ -327,23 +322,20 @@ def gate_route(v2_ok: bool, static: bool, fused: bool, v3: bool, A: int, G: int,
     """make_obs_fn's route from the shapes alone (tail_route): the image
     int32[HP, WPC] (on the v3 routes its paired halves, 2*HP2 rows each),
     A agents, G global lanes, K window cells of S slots and out_w words per
-    row. A staged kernel (B1, B2, B6a) fits where it has a launch plan
+    row. A staged kernel (B1, B2, B4, B6a) fits where it has a launch plan
     (tail_plan.holds, at least one stage and one warp's rows within
-    ``max_smem``, MAX_SMEM by default); B4 where its image and candidate
-    tables fit. B3, B5 and B6b hold where they have a launch plan within the
-    card's shared memory. Never depends on the card or the plan it would
+    ``max_smem``, MAX_SMEM by default); a static background that B4 does not
+    fit goes to B5. B3, B5 and B6b hold where they have a launch plan within
+    the card's shared memory. Never depends on the card or the plan it would
     pick."""
     max_smem = MAX_SMEM if max_smem is None else max_smem
     if v3:
         staged, device, rows = "B6a", "B6b", 2 * HP2
     elif v2_ok:
         staged, device, rows = ("B1" if static else "B2"), "B3", HP
-    else:
-        staged, device, rows = None, "B5", HP
-    if staged is None:
-        fits = staged_smem_bytes(HP, WPC, K, S) <= max_smem
-    else:
-        fits = tail_plan.holds(staged, rows, WPC, A, G, K, S, out_w, max_smem=max_smem)
+    else:  # B5 takes a mutable background whether B4 fits or not
+        staged, device, rows = "B4", "B5", HP
+    fits = tail_plan.holds(staged, rows, WPC, A, G, K, S, out_w, max_smem=max_smem)
     holds = tail_plan.holds(device, rows, WPC, A, G, K, S, out_w)
     return tail_route(v2_ok, static, fits, fused, v3, holds)
 
@@ -385,17 +377,17 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
     observations), feature ids that fit its packing and a window of at most
     16 rows; the v1 tail (B4, B5) takes the rest whose window rows are at
     most 128 lanes wide (OW * S <= 128). An image fits a block when the
-    staged kernel has a launch plan for it within the 232,448 bytes of
-    shared memory an H100 block may use (MAX_SMEM): for B1, B2 and B6a at
-    least one stage of the image (or paired halves) and agent tables and
-    one warp's row buffers (engine/kernels/tail_plan.py); for B4, whose
-    blocks each take one env, its image and candidate tables. B3 and B5 take
-    an image built beforehand in device memory instead (B5 stages it where
-    its launch plan fits). Where B3, B5 or B6b has no launch plan for the
-    shapes (more than 32 global lanes, window offsets that do not pack, more
-    candidates than its largest compiled round count), the route is the
-    non-fused path (gate_route), so every config the fused gates admit runs
-    on the card.
+    staged kernel (B1, B2, B4, B6a) has a launch plan for it within the
+    232,448 bytes of shared memory an H100 block may use (MAX_SMEM): at
+    least one stage of the image (or paired halves) and agent tables and one
+    warp's row buffers (engine/kernels/tail_plan.py). B4 also serves more
+    than 32 global lanes (value observations), each other kernel at most 32.
+    B3 and B5 take an image built beforehand in device memory instead (B5
+    stages it where its launch plan fits). Where B3, B5 or B6b has no launch
+    plan for the shapes (more than 32 global lanes, window offsets that do
+    not pack, more candidates than its largest compiled round count), the
+    route is the non-fused path (gate_route), so every config the fused
+    gates admit runs on the card.
 
     obs_buf: optional carried uint8[E, A, T, 3] buffer from the previous
     step or reset. On the v2 and v3 routes (B1-B3, B6a, B6b) token ranks at

@@ -10,11 +10,15 @@ Three variants, as bench.py:29-83 and 96-101 build them:
 * ``general``: the combat handlers without the starting inventory, plus a
   periodic event that grants hearts to walls, so the background is mutable.
 
-and three that take the observation routes off the v2 fast path:
+and four that take the observation routes off the v2 fast path:
 
 * ``arena_lp``: the flagship with local-position tokens
   (``global_obs.local_position``, absent on the spawn cell), so the v1 tail
   over the static pool (kernel B4);
+* ``arena_values``: the flagship with every resource's amount as a value
+  observation in base 10 (``global_obs.obs``: three digit tokens each, absent
+  while the amount is too small to need them), 53 global lanes, so B4 with
+  its globals past 32 in rounds of their own;
 * ``general_lp``: the general config with local-position tokens, so the v1
   tail over a per-env image built from every object (kernel B5);
 * ``arena_128``: the flagship on 128x128 maps (border 1, the preset's 10
@@ -59,6 +63,7 @@ import numpy as np
 import torch
 
 from mettagrid_tpu_torch.builder import make_arena
+from mettagrid_tpu_torch.config.game_value import InventoryValue
 from mettagrid_tpu_torch.engine import build_env_init, compile_program, make_reset, make_step
 from mettagrid_tpu_torch.maps.random_map import RandomMapBuilder
 
@@ -67,7 +72,7 @@ ENVS = 4096
 POOL = 64
 WARMUP = 8
 VARIANTS = (
-    "flagship", "combat", "general", "arena_lp", "general_lp", "arena_128", "territory",
+    "flagship", "combat", "general", "arena_lp", "arena_values", "general_lp", "arena_128", "territory",
     "flagship_v3", "arena_mood", "arena_mood_v3", "tithe_rrng",
 )
 # Shrines of the tithe family, renamed from reachable walls of each map.
@@ -276,6 +281,9 @@ def make_cfg(variant: str, num_agents: int = AGENTS):
     else:
         cfg = make_arena(num_agents, combat=False)
     cfg.game.obs.global_obs.local_position = variant.endswith("_lp")
+    if variant == "arena_values":
+        cfg.game.obs.global_obs.obs = {f"v_{r}": InventoryValue(item=r) for r in cfg.game.resource_names}
+        cfg.game.obs.token_value_base = 10
     return cfg
 
 

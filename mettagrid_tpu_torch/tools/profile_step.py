@@ -3,7 +3,7 @@
     python -m mettagrid_tpu_torch.tools.profile_step [--variant V] [--out PATH]
 
 V is one of tools/bench_run.py's variants: flagship (the default), combat,
-general, arena_lp, general_lp, arena_128, territory, flagship_v3,
+general, arena_lp, arena_values, general_lp, arena_128, territory, flagship_v3,
 arena_mood, arena_mood_v3, tithe_rrng. Steps the variant (4096 envs x 24
 agents, a pool of 64 maps, auto-reset, observations carried) on the CUDA
 device, with the variant's observation tail and, for tithe_rrng, the

@@ -40,10 +40,11 @@ from mettagrid_tpu_torch.engine import obs as tobs
 from mettagrid_tpu_torch.engine.interop import state_from_numpy
 from mettagrid_tpu_torch.engine.kernels.obs_tail_dyn_v2 import obs_tail_dyn_v2
 from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v1 import obs_tail_static_v1
-from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import MAX_SMEM, staged_smem_bytes
+from mettagrid_tpu_torch.engine.kernels.tail_plan import MAX_SMEM
 from mettagrid_tpu_torch.engine.kernels.obs_tail_v1 import obs_tail_v1
 from mettagrid_tpu_torch.maps.random_map import RandomMapBuilder
 from tests.test_torch_general import A, E, _build, _cfgs, _lockstep
+from tests.test_torch_tail_plan import _one_image_and_tables
 
 
 def _arena_cfgs(value_obs: bool):
@@ -139,7 +140,7 @@ def test_large_map_routes_at_build_time(local_position, kernel, background):
     background is the static pool or built from every object, and the
     observations equal the JAX engine's."""
     t, tp, ti, state, (ref_obs, ref_att) = _big_case(local_position)
-    assert staged_smem_bytes(t["HP_f"], t["WPC_f"], len(tp.window_offsets), t["S"]) > MAX_SMEM
+    assert _one_image_and_tables(t["HP_f"], t["WPC_f"], len(tp.window_offsets), t["S"]) > MAX_SMEM
     assert t["v2_ok"] != local_position
     bg = tobs.build_static_bg(tp, ti, "cpu") if background == "static" else None
     fn = tobs.make_obs_fn(tp, bg, "cpu")

@@ -1,11 +1,12 @@
-"""The launch plan of the persistent tails B1, B2, B3, B5, B6a and B6b
+"""The launch plan of the persistent tails B1, B2, B3, B4, B5, B6a and B6b
 (engine/kernels/tail_plan.py), a function of the shapes, at the bench
 shapes and at the edges it branches on.
 
 At full bench size (24 agents, 25x25 maps; arena_128 on 128x128 maps) the
 obs function is built on the CPU and its route and tail shapes read: the
-route stays B1/B2/B1/B3/B5/B6a/B6b for flagship/general/combat/arena_128/
-general_lp/flagship_v3/arena_mood_v3. Each candidate plan fits one block's
+route stays B1/B2/B1/B3/B4/B4/B5/B6a/B6b for flagship/general/combat/
+arena_128/arena_lp/arena_values/general_lp/flagship_v3/arena_mood_v3. Each
+candidate plan fits one block's
 shared memory; the plan kept is the one that leaves the most warps resident
 per SM (here counted from shared memory alone; the wrapper asks the card,
 which also counts registers), the one with the most stages on a tie. Images
@@ -15,12 +16,14 @@ the row buffers of WARPS warps run with fewer warps. B5 stages its per-env
 image wherever a staged plan fits and holds, and reads it from device
 memory otherwise; B3 and B6b read their image or paired halves from device
 memory at every size, and B3 keeps at most 12 rounds in registers. B6a's
-plan offsets carry the right half's distance. The persistent grid holds every
+plan offsets carry the right half's distance. B4 plans B1's layout with v1
+rows of any width and any number of globals (past 32 they take rounds of
+their own). The persistent grid holds every
 resident block and no more blocks than envs. Every kind's plans refuse
 shapes they cannot hold, with the reason: rows that are not whole 16-byte
-units (the v2 kinds), more than 32 globals, offsets that do not pack, more
-candidates than the largest compiled bucket of rounds. The route never asks
-the card or the plan it would keep.
+units (the v2 kinds), more than 32 globals (every kind but B4), offsets that
+do not pack, more candidates than the largest compiled bucket of rounds.
+The route never asks the card or the plan it would keep.
 """
 
 import pytest
@@ -28,6 +31,12 @@ import pytest
 from mettagrid_tpu_torch.engine import obs as tobs
 from mettagrid_tpu_torch.engine.kernels import tail_plan as tp
 from mettagrid_tpu_torch.tools import bench_run
+
+
+def _one_image_and_tables(HP, WPC, K, S):
+    """Bytes of one env's image int32[HP, WPC] and three candidate tables of
+    K*S entries: the shapes' size beside one block's shared memory."""
+    return (HP * WPC + 3 * K * S) * 4
 
 
 def _smem_blocks_per_sm(plan):
@@ -43,6 +52,8 @@ BENCH = {
     "general": ("B2", 24, 512, [2, 1], 2),
     "combat": ("B1", 32, 384, [2, 1], 1),
     "arena_128": ("B3", 12, 256, [0], 0),
+    "arena_lp": ("B4", 12, 389, [1], 1),
+    "arena_values": ("B4", 12, 437, [1], 1),  # 53 globals: two rounds of their own, the window's 12 planned
     "general_lp": ("B5", 24, 512, [2, 1], 1),
     "flagship_v3": ("B6a", 12, 256, [1], 1),
     "arena_mood_v3": ("B6b", 16, 384, [0], 0),
@@ -57,7 +68,7 @@ def test_bench_shapes_plan(variant):
     fn = tobs.make_obs_fn(program, bg, "cpu", obs_tail=bench_run.variant_options(variant)["obs_tail"])
     assert fn.route == route
     sh = dict(fn.tail_shapes)
-    fits = tobs.staged_smem_bytes(sh["HP"], sh["WPC"], sh["K"], sh["S"]) <= tobs.MAX_SMEM
+    fits = _one_image_and_tables(sh["HP"], sh["WPC"], sh["K"], sh["S"]) <= tobs.MAX_SMEM
     assert fits == (route != "B3")
     assert fn.out_w == out_w
     HP2 = sh.pop("HP2", None)
@@ -70,7 +81,8 @@ def test_bench_shapes_plan(variant):
     assert [p.stages for p in plans] == stage_counts
     for p in plans:
         assert p.rounds == rounds == tp.rounds_for(G, sh["K"], S, route)
-        assert 32 * p.rounds >= G + sh["K"] * S
+        # The plan holds every candidate; B4's past 32 globals take rounds of their own.
+        assert 32 * p.rounds >= (0 if route == "B4" and G > 32 else G) + sh["K"] * S
         assert p.warps == min(tp.WARPS, A)
         assert p.smem_bytes == tp.smem_bytes(route, p.stages, p.warps, sh["HP"], sh["WPC"], fn.out_w, A, G, S, N)
         assert p.smem_bytes <= tp.MAX_SMEM
@@ -225,7 +237,8 @@ def test_largest_candidate_count_plans():
     rows of 128 slots) at 61 rounds, in each of its modes, with the entries
     of the 49 rounds past its 12 register rounds in shared memory."""
     G, K, S = 32, 15, 128
-    for kind, stages in (("B1", [2, 1]), ("B2", [2, 1]), ("B3", [0]), ("B5", [2, 1]), ("B6a", [1]), ("B6b", [0])):
+    for kind, stages in (("B1", [2, 1]), ("B2", [2, 1]), ("B3", [0]), ("B4", [1]), ("B5", [2, 1]), ("B6a", [1]),
+                         ("B6b", [0])):
         plans = tp.candidate_plans(kind, 32, 256, 24, G, K, S, 1024, N=60)
         assert [p.stages for p in plans] == stages and {p.rounds for p in plans} == {61}, kind
         for p in plans:
@@ -252,3 +265,30 @@ def test_route_never_asks_the_plan(monkeypatch):
     monkeypatch.setattr(tp, "STAGE_COUNTS", dict(tp.STAGE_COUNTS, B1=(1,), B2=(1,)))
     assert tobs.gate_route(True, True, True, False, 24, 3, 121, 3, 48, 128, 0, 256) == "B1"
     assert tobs.gate_route(True, True, True, True, 24, 3, 121, 3, 48, 128, 32, 256) == "B6a"
+
+
+@pytest.mark.parametrize("G,out_w", [(5, 389), (5, 392), (53, 437), (64, 448), (64, 449)])
+def test_b4_plans_any_globals_and_row_width(G, out_w):
+    """B4 at the arena_lp image (48 x 128, K 121, S 3, 24 agents): B1's
+    layout with v1 rows of any width, their buffers rounded up to 16 bytes,
+    at 5 globals and at 53 and 64 (value observations), which take rounds
+    of their own ahead of a plan of the window's 363 candidates alone (12
+    rounds). B5 still refuses more than 32 globals."""
+    HP, WPC, A, K, S = 48, 128, 24, 121, 3
+    plans = tp.candidate_plans("B4", HP, WPC, A, G, K, S, out_w)
+    assert [p.stages for p in plans] == [1]
+    rounds = tp.rounds_for(G, K, S, "B4")
+    assert rounds == 12 and 32 * rounds >= (G if G <= 32 else 0) + K * S
+    assert tp.rounds_for(G, K, S) == {5: 12, 53: 16, 64: 16}[G]  # the other kinds' plans hold the globals too
+    rows = 12 * 2 * ((out_w + 3) // 4 * 4) * 4
+    for p in plans:
+        assert p.warps == tp.WARPS and p.rounds == rounds
+        tables = ((A * (4 + S + G) + 3) // 4 * 4) * 4
+        assert p.smem_bytes == tp.BARRIER_BYTES + p.stages * (HP * WPC * 4 + tables) + rows
+        assert p.smem_bytes == tp.smem_bytes("B1", p.stages, p.warps, HP, WPC, out_w, A, G, S)
+        assert tp.refusal("B4", p, HP, WPC, G, S, out_w) is None
+    if G > 32:
+        with pytest.raises(ValueError, match="global words"):
+            tp.candidate_plans("B5", HP, 256, A, G, K, S, out_w)
+        with pytest.raises(ValueError, match="global words"):
+            tp.candidate_plans("B1", HP, WPC, A, G, K, S, 448)
