@@ -131,7 +131,20 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
     round), in every mode, and B4 at 53 and 64 globals with that window and
     with arena_lp's; and images at the shared-memory edge, routed by the
     route gate (obs.gate_route) to a kernel with a plan (B3, or B5 off the
-    v2 gate) and launched.
+    v2 gate) and launched;
+25. full_combat (the reference's full-combat parity family: shield_break,
+    melee loot and DirectAttack, bump_swap; per-agent loadouts; its
+    reachable swap takes the Chebyshev waves, and full_token_bounds gives
+    23 token slots per cell, so the non-fused observation path): B7 and B8
+    against their plain versions on the live state after 12 steps at full
+    width, timed; the main path (8 warm-up, 32 timed steps) from the counts
+    at 0 with B7 and B8 launched once per observation pass, attacks, loot
+    and swaps engaged, the Chebyshev waves per step (mean and largest) and
+    the peak device memory; 8 more steps under torch.profiler for the
+    launches per step, the device's busy time and idle share; then the GPU
+    path against the CPU path (64 envs, pool 3, max_steps 10, 24 steps) with
+    the Chebyshev waves and with the sequential phase, every output and
+    every state field but rng byte-equal.
 
 Every phase asserts. The line before the last is the kernels' JSON record;
 the last line is {"ok": true, "device": {...}}. With no CUDA device, or
@@ -401,24 +414,26 @@ def _main_path(torch, card: str):
 
 
 def _gpu_vs_cpu(torch, variant: str, pool: int, E: int, n_steps: int, max_steps: int, armed: bool = False,
-                change=None, reference_rng=None):
+                change=None, reference_rng=None, action_mode: str = "auto"):
     """The card's path against the CPU plain path, byte for byte, with agent
     orders, reset maps and (where the config has events) event ranks drawn
     with numpy and fed to both; ``change(cfg)`` edits the variant's config
     first. Under the reference-RNG step (the variant's, or ``reference_rng``)
     only the actions and the reset maps are fed: the MT19937 twin draws the
-    rest on each device. Returns the card's trace of (state, outputs) as
-    numpy, one entry per step and one for the reset."""
+    rest on each device. full_combat takes its loadouts and its family's
+    action script. Returns the card's trace of (state, outputs) as numpy,
+    one entry per step and one for the reset."""
     from mettagrid_tpu_torch.engine import make_reset, make_step
     from mettagrid_tpu_torch.engine.interop import state_to_numpy
-    from mettagrid_tpu_torch.tools.bench_run import AGENTS, build_pool, make_cfg, variant_options
+    from mettagrid_tpu_torch.tools.bench_run import AGENTS, build_pool, full_combat_script, make_cfg, variant_options
 
     cfg = make_cfg(variant)
     if armed:
         cfg.game.agent.inventory.initial = {"laser": 5, "armor": 1, "heart": 9}
     if change is not None:
         change(cfg)
-    program, init = build_pool(cfg, pool, max_steps=max_steps)
+    full_combat = variant == "full_combat"
+    program, init = build_pool(cfg, pool, max_steps=max_steps, loadouts=full_combat)
     opts = variant_options(variant)
     if reference_rng is not None:
         opts["reference_rng"] = reference_rng
@@ -430,12 +445,15 @@ def _gpu_vs_cpu(torch, variant: str, pool: int, E: int, n_steps: int, max_steps:
     runs = {}
     for dev in ("cuda", "cpu"):
         reset = make_reset(program, init, E, device=dev, **opts)
-        step = make_step(program, init, auto_reset=True, external_perm=not rrng, device=dev, **opts)
+        step = make_step(program, init, auto_reset=True, external_perm=not rrng, device=dev, action_mode=action_mode,
+                         **opts)
         rng = np.random.default_rng(6)
         state, out = reset(0)
         trace = [(state_to_numpy(state), {k: v.cpu().numpy().copy() for k, v in out._asdict().items()})]
         for _ in range(n_steps):
-            if angry is None:
+            if full_combat:
+                acts, vibes = full_combat_script(program, rng, (E, AGENTS))
+            elif angry is None:
                 acts = rng.integers(-1, n_actions + 1, (E, AGENTS)).astype(np.int32)
                 vibes = np.zeros_like(acts)
             else:
@@ -602,6 +620,28 @@ def _tithe_path(torch, card: str):
           f"{WARMUP + n_timed} steps: {_times(record)}", flush=True)
 
 
+def _nonfused_records(torch, fn, state):
+    """The non-fused path's kernels B7 (window slices) and B8 (row
+    compaction) against their plain versions on a live state, word for word,
+    timed, with the bound from these inputs. Returns (B7's record, B8's, a
+    note of the shapes)."""
+    wargs = fn.window_inputs(state)
+    E, A = wargs["row0"].shape
+    K, Ch = wargs["geom"].shape[0], wargs["Ch"]
+    # The image words inside some window are read once, the windows written once.
+    window = dict(imgp=wargs["img"], row0=wargs["row0"], lane0=wargs["lane0"], geom=wargs["geom"], S=Ch)
+    read = (_window_words(torch, window) + 2 * E * A + 3 * K) * 4
+    b7 = _kernel_record(torch, "window_slices", wargs, read + E * A * K * Ch * 4, E * A * K * Ch)
+    del wargs, window
+    cargs = fn.compact_inputs(state)
+    R, C = cargs["words"].shape
+    T = cargs["T"]
+    valid = float((cargs["words"] >= 0).float().mean())
+    b8 = _kernel_record(torch, "compact_rows", cargs, (R * C + R * T) * 4, R * C)
+    return b7, b8, (f"({E} x {A} windows of {K} cells x {Ch} channels; {R} rows of {C} words, {valid:.3f} valid, "
+                    f"budget {T})")
+
+
 def _territory_paths(torch, card: str):
     """Phases 14 and 15: B7 and B8 against their plain versions on the live
     territory state after 12 steps, then the territory main path from the
@@ -620,22 +660,10 @@ def _territory_paths(torch, card: str):
 
     # --- phase 14: B7 and B8 vs plain after 12 steps ---
     state, out = bench.run(state, out, 12)
-    wargs = fn.window_inputs(state)
-    E, A = wargs["row0"].shape
-    K, Ch = wargs["geom"].shape[0], wargs["Ch"]
-    # The image words inside some window are read once, the windows written once.
-    window = dict(imgp=wargs["img"], row0=wargs["row0"], lane0=wargs["lane0"], geom=wargs["geom"], S=Ch)
-    read = (_window_words(torch, window) + 2 * E * A + 3 * K) * 4
-    b7 = _kernel_record(torch, "window_slices", wargs, read + E * A * K * Ch * 4, E * A * K * Ch)
-    cargs = fn.compact_inputs(state)
-    R, C = cargs["words"].shape
-    T = cargs["T"]
-    valid = float((cargs["words"] >= 0).float().mean())
-    b8 = _kernel_record(torch, "compact_rows", cargs, (R * C + R * T) * 4, R * C)
-    del state, out, wargs, window, cargs
-    print(f"[14] B7 equal to its plain version on the territory state after 12 steps ({E} x {A} windows of "
-          f"{K} cells x {Ch} channels): {_times(b7)}; B8 equal ({R} rows of {C} words, {valid:.3f} valid, "
-          f"budget {T}): {_times(b8)}", flush=True)
+    b7, b8, shapes = _nonfused_records(torch, fn, state)
+    del state, out
+    print(f"[14] B7 and B8 equal to their plain versions on the territory state after 12 steps {shapes}: "
+          f"B7 {_times(b7)}; B8 {_times(b8)}", flush=True)
 
     # --- phase 15: the territory main path, counts from 0 ---
     n_timed = 32
@@ -655,6 +683,62 @@ def _territory_paths(torch, card: str):
           f"enemy {enemy}; agents hold {hearts} hearts ({hearts0} at reset); peak device memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
     return b7, b8
+
+
+def _full_combat(torch, card: str):
+    """Phase 25: the full_combat path at full width (B7 and B8 on its live
+    state, the main path from the counts at 0, a trace of its launches and
+    device time), then its GPU path against the CPU path in both action
+    phases. Returns B7's and B8's figures at this path's shapes."""
+    from mettagrid_tpu_torch.engine.actions_fast import footprint_schedule_ok
+    from mettagrid_tpu_torch.engine.kernels.compact_rows import compact_rows
+    from mettagrid_tpu_torch.engine.kernels.window_slices import window_slices
+    from mettagrid_tpu_torch.tools.bench_run import AGENTS, ENVS, POOL, BenchRun
+    from mettagrid_tpu_torch.tools.profile_step import trace
+
+    torch.cuda.empty_cache()
+    bench = BenchRun("full_combat", seed=125)
+    fn, program = bench.step.obs_fn, bench.program
+    assert fn.route == "nonfused", f"full_combat routes to {fn.route}"
+    assert bench.step.action_phase_kind == "waves" and not footprint_schedule_ok(program), "not the Chebyshev waves"
+    state, out = bench.run(*bench.reset(0), 12)
+    b7, b8, shapes = _nonfused_records(torch, fn, state)
+    del state, out
+    print(f"[25] B7 and B8 equal to their plain versions on the full_combat state after 12 steps {shapes}: "
+          f"B7 {_times(b7)}; B8 {_times(b8)}", flush=True)
+
+    n_timed = 32
+    torch.cuda.reset_peak_memory_stats()
+    bench.waves.clear()
+    state, out, dt, launches = _timed_path(torch, bench, n_timed, window_slices, compact_rows)
+    peak = torch.cuda.max_memory_allocated()
+    waves = bench.waves[-n_timed:]
+    R = program.num_resources
+    heart, ore = program.resource_names.index("heart"), program.resource_names.index("ore_red")
+    lost = int(state.auto_stats[..., R + heart].sum())
+    deposited = int(state.auto_stats[..., 2 * R + ore].sum())
+    swaps = float(state.agent_stats[..., program.agent_stat_names.index("actions.swap")].sum())
+    assert lost > 0 and deposited > 0 and swaps > 0, f"combat did not engage: {lost} hearts lost, {deposited} ore looted, {swaps} swaps"
+    step_ms = dt / n_timed * 1e3
+    state, out, traced = trace(bench, state, out, 8)
+    busy = traced["device_busy_ms_per_step"]
+    b7["launches"] = b8["launches"] = launches
+    print(f"[25] full_combat main path ({fn.route}, Chebyshev waves), {ENVS} envs x {AGENTS} agents, pool {POOL}, "
+          f"auto-reset, obs carried: {ENVS * n_timed / dt:.0f} env-steps/s, {step_ms:.3f} ms/step (host clock over "
+          f"{n_timed} steps) on {card}; waves per step mean {sum(waves) / n_timed:.3f}, largest {max(waves)}; B7 and "
+          f"B8 launches {launches} each; {traced['kernel_launches_per_step']:.1f} launches per step, device busy "
+          f"{busy:.3f} ms per step, idle share {max(0.0, 1 - busy / step_ms):.3f} (traced step "
+          f"{traced['step_ms_traced']:.3f} ms over 8 steps); peak device memory {peak / 2**30:.2f} GiB "
+          f"({peak} bytes); {lost} hearts lost, {deposited} ore_red looted, {swaps:.0f} swaps", flush=True)
+    del state, out
+    torch.cuda.empty_cache()
+    for mode in ("auto", "sequential"):
+        _gpu_vs_cpu(torch, "full_combat", 3, 64, 24, 10, action_mode=mode)
+        print(f"[25] GPU path equals the CPU path on full_combat ({'Chebyshev waves' if mode == 'auto' else mode} "
+              "action phase) over 24 steps of 64 envs, pool of 3 maps, with auto-resets (every output, every state "
+              "field but rng)", flush=True)
+    return {k: {"launches": launches, **{f: r[f] for f in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}}
+            for k, r in (("B7", b7), ("B8", b8))}
 
 
 def _wide_window(cfg):
@@ -1148,7 +1232,9 @@ def main() -> int:
     _per_env_tails(torch)
     _b3_b6a_tails(torch)
     _launch_limits(torch)
-    print(f"[24] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    fc = _full_combat(torch, card)
+    b7["full_combat"], b8["full_combat"] = fc["B7"], fc["B8"]
+    print(f"[25] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6a, b6b, b7, b8]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

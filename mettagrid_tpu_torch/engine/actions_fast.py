@@ -6,11 +6,11 @@ actions sequentially in shuffled order with immediate effect
 waves of agents whose effects are provably disjoint.
 
 This module ports the static gates (numpy over the compiled program, copied
-from the reference), the pure-relocation wave loop of the arena preset, and
-the exact footprint-schedule wave loop whose batches run handler chains
-(DirectAttack, relocate, UseTarget) for the combat and general presets. The
-conservative Chebyshev wave loop, which programs with longer-range move
-handlers need, raises NotImplementedError (ROADMAP Queue 1 item 2).
+from the reference), the pure-relocation wave loop of the arena preset, the
+exact footprint-schedule wave loop whose batches run handler chains
+(DirectAttack, relocate, UseTarget) for the combat and general presets, and
+the conservative Chebyshev wave loop that programs with a reachable swap or
+move handlers of range above 1 take.
 """
 
 from __future__ import annotations
@@ -446,18 +446,28 @@ def make_action_phase_fast(program: EngineProgram, pure_move: bool = False, lazy
     from the position vector, static occupancy only tests ``slot >= A``),
     so the grid keeps its reset value, as in the reference engine.
 
-    Otherwise the moves run the exact footprint schedule
-    (footprint_schedule_ok): wave indices come from the phase-start cells,
-    and each wave runs the handler chains for its agents
-    (make_apply_move_batch).
+    Otherwise the moves run the exact footprint schedule where
+    footprint_schedule_ok holds: wave indices come from the phase-start
+    cells, and each wave runs the handler chains for its agents
+    (make_apply_move_batch). Where it does not (a reachable swap, or a move
+    handler of range above 1), they run the Chebyshev waves: each wave
+    settles the unsettled movers with no earlier-ranked unsettled mover
+    within Chebyshev distance 2 * max_range of their current cells, so their
+    scans and writes cannot touch, and distances are taken anew each wave
+    (a swap moves its target before the target's own turn).
 
     Returns action_phase(state, actions, vibe_actions, perm) -> state, out of
-    place (the input state's tensors are not written)."""
-    if not (pure_move or footprint_schedule_ok(program)):
-        raise NotImplementedError(
-            "the Chebyshev wave loop for move handlers beyond range 1 is not ported yet "
-            "(ROADMAP Queue 1 item 2)"
-        )
+    place (the input state's tensors are not written). action_phase.waves
+    holds the number of handler-chain (or pure-move) waves of its last call,
+    read from the host reads the loops make anyway."""
+    sched_ok = footprint_schedule_ok(program)
+    # Chebyshev interaction radius: two agents farther apart cannot reach a
+    # common cell or object with their line scans and moves.
+    r_int = 2 * max((mh.max_range for mh in program.move_handlers), default=1)
+    # A reachable swap can move an agent that does not move itself (noop)
+    # before its turn; the waves then book such agents at their turn.
+    swaps = any(_handler_has_swap(h) for h in [mh.handler for mh in program.move_handlers]
+                + list(program.on_use_handlers) + list(program.on_after_use_handlers))
     apply_move_batch = make_apply_move_batch(program)
     n_actions = len(program.action_names)
     kind_np = np.asarray(program.action_kind)
@@ -536,11 +546,13 @@ def make_action_phase_fast(program: EngineProgram, pure_move: bool = False, lazy
             unsettled = unsettled & ~settle
             success = success | succ
             waves += 1
+        action_phase.waves += waves
         return pos, success
 
     def action_phase(state: EnvState, actions, vibe_actions, perm) -> EnvState:
         E = actions.shape[0]
         dev = actions.device
+        action_phase.waves = 0
         if dev not in tables:
             tables[dev] = torch.from_numpy(table_np).to(dev)
         TB = tables[dev]
@@ -627,7 +639,7 @@ def make_action_phase_fast(program: EngineProgram, pure_move: bool = False, lazy
                     succ_all = succ_now | move_succ
                     r_at = torch.where(move_mask, new_r, r_base)
                     c_at = torch.where(move_mask, new_c, c_base)
-                elif program.move_handlers and stream_has_move:
+                elif program.move_handlers and stream_has_move and sched_ok:
                     # --- exact footprint schedule: wave indices from the
                     # phase-start cells ([E, A, A] boolean math), then one
                     # handler-chain batch per wave. x waits for an earlier
@@ -665,14 +677,47 @@ def make_action_phase_fast(program: EngineProgram, pure_move: bool = False, lazy
                         r_rec = torch.where(settle, state.obj_r[:, :A], r_rec)
                         c_rec = torch.where(settle, state.obj_c[:, :A], c_rec)
                         move_succ = move_succ | succ
+                    action_phase.waves += n_waves
                     settled_all = settled_now | move_mask
                     succ_all = succ_now | move_succ
                     r_at = torch.where(move_mask, r_rec, r_base)
                     c_at = torch.where(move_mask, c_rec, c_base)
+                elif program.move_handlers and stream_has_move:
+                    # --- Chebyshev waves (reference actions_fast.py:837-877):
+                    # an agent settles once no earlier-ranked unsettled agent
+                    # lies within r_int of it, distances taken from the
+                    # current cells; one host read per wave. Where a swap
+                    # is reachable the agents that act without moving
+                    # (noop) wait their turn too, as a swap can move them
+                    # before it, and their cell is recorded at it, as the
+                    # sequential phase records it (the reference records
+                    # their phase-start cell) ---
+                    move_mask = active & (kind == KIND_MOVE)
+                    dr, dc = f[..., 6], f[..., 7]
+                    earlier = rank[:, None, :] < rank[:, :, None]  # [E, x, y]
+                    unsettled = move_mask | settled_now if swaps else move_mask
+                    move_succ = torch.zeros_like(move_mask)
+                    r_rec, c_rec = r_base, c_base
+                    while bool(unsettled.any()):
+                        ar, ac = state.obj_r[:, :A], state.obj_c[:, :A]
+                        near = torch.maximum(
+                            (ar[:, :, None] - ar[:, None, :]).abs(), (ac[:, :, None] - ac[:, None, :]).abs()
+                        ) <= r_int
+                        settle = unsettled & ~(near & earlier & unsettled[:, None, :]).any(dim=-1)
+                        state, succ = apply_move_batch(state, settle & move_mask, dr, dc)
+                        r_rec = torch.where(settle, state.obj_r[:, :A], r_rec)
+                        c_rec = torch.where(settle, state.obj_c[:, :A], c_rec)
+                        unsettled = unsettled & ~settle
+                        move_succ = move_succ | succ
+                        action_phase.waves += 1
+                    settled_all = settled_now | move_mask
+                    succ_all = succ_now | move_succ
+                    r_at, c_at = r_rec, c_rec
                 else:
                     settled_all, succ_all, r_at, c_at = settled_now, succ_now, r_base, c_base
 
                 state = bookkeeping(state, settled_all, a, succ_all, r_at, c_at, sstat, fstat)
         return state
 
+    action_phase.waves = 0
     return action_phase

@@ -1,12 +1,13 @@
 """Engine primitives: entity gathers and scatters, grid reads and writes,
 inventory math, game values, filters and tag queries.
 
-Counterpart of the reference's engine/exec.py, reduced to what the
-flagship, combat, general, territory, wall_mood and tithe steps reach. The
-reference formulates gathers as one-hot matmuls, a workaround for XLA on
-the TPU (its ``_use_onehot``); here they are direct gathers and
-``scatter_`` calls. Every function works out of place. Constructs the port does not run yet raise
-NotImplementedError naming the ROADMAP item that ports them.
+Counterpart of the reference's engine/exec.py: every filter kind, and of
+the query kinds the tag query alone (the filtered, closure and raycast
+kinds raise NotImplementedError naming ROADMAP Queue 1 item 4, and
+step._unported refuses them when a step is built). The reference
+formulates gathers as one-hot matmuls, a workaround for XLA on the TPU (its
+``_use_onehot``); here they are direct gathers and ``scatter_`` calls.
+Every function works out of place.
 
 Batch convention: context fields have shape B = (E, ...): (E, A) in move
 waves and territory contexts, (E, N) in event and query contexts, (E, N, A)
@@ -238,6 +239,28 @@ def type_select(program, tid: torch.Tensor, table_np) -> torch.Tensor:
     return torch.where(ok, rows, 0)
 
 
+def _limit_tables(program, rid: int, device):
+    """The per-type tables of resource ``rid``'s limit group, on ``device``:
+    int32 [nt, 1 + 2R + 2] rows of (in a group, member mask, modifier
+    weights, group min, group max), built once per program."""
+    cache = program.__dict__.setdefault("_limit_tables", {})
+    key = (rid, str(torch.device(device)))
+    t = cache.get(key)
+    if t is None:
+        member_np = np.asarray(program.type_group_member)  # [nt, G, R]
+        gmin_np = np.asarray(program.type_group_min)  # [nt, G]
+        nt, G = gmin_np.shape
+        ts = np.arange(nt)
+        gid_np = np.asarray(program.type_limit_group)[:, rid]
+        gsel_np = np.clip(gid_np, 0, max(G - 1, 0))
+        rows = np.concatenate([
+            (gid_np >= 0)[:, None], member_np[ts, gsel_np], np.asarray(program.type_group_modw)[ts, gsel_np],
+            gmin_np[ts, gsel_np][:, None], np.asarray(program.type_group_max)[ts, gsel_np][:, None],
+        ], axis=1).astype(np.int32)
+        t = cache[key] = torch.from_numpy(rows).to(device)
+    return t
+
+
 def inv_update(program, tid, inv, rid: int, delta, mask):
     """Clamped shared-limit inventory update for one static resource id.
 
@@ -245,21 +268,15 @@ def inv_update(program, tid, inv, rid: int, delta, mask):
     actual_delta). The effective limit is clamp(min(max, max(min,
     sum(modifier*qty))), 0, 65535); this item's capacity is the effective
     limit less what the group's other members hold (inventory.cpp:46-57)."""
-    lg_np = np.asarray(program.type_limit_group)  # [nt, R]
-    member_np = np.asarray(program.type_group_member)  # [nt, G, R]
-    modw_np = np.asarray(program.type_group_modw)
-    gmin_np = np.asarray(program.type_group_min)  # [nt, G]
-    gmax_np = np.asarray(program.type_group_max)
-    nt, G = gmin_np.shape
-    ts = np.arange(nt)
-    gid_np = lg_np[:, rid]
-    gsel_np = np.clip(gid_np, 0, max(G - 1, 0))
-
-    has_group = type_select(program, tid, (gid_np >= 0).astype(np.int32)) > 0
-    mem = type_select(program, tid, member_np[ts, gsel_np])  # [B, R]
-    mw = type_select(program, tid, modw_np[ts, gsel_np])
-    g_min = type_select(program, tid, gmin_np[ts, gsel_np])  # [B]
-    g_max = type_select(program, tid, gmax_np[ts, gsel_np])
+    tbl = _limit_tables(program, rid, tid.device)
+    R = inv.shape[-1]
+    # The type's row (an out-of-range tid, -1 of a masked-off slot, reads
+    # zeros, as type_select does).
+    nt = tbl.shape[0]
+    rows = torch.where(((tid >= 0) & (tid < nt))[..., None], tbl[tid.clamp(0, nt - 1).long()], 0)
+    has_group = rows[..., 0] > 0
+    mem, mw = rows[..., 1 : 1 + R], rows[..., 1 + R : 1 + 2 * R]
+    g_min, g_max = rows[..., 1 + 2 * R], rows[..., 2 + 2 * R]
 
     mod_sum = (inv * mw).sum(dim=-1, dtype=_I32)
     effective = torch.minimum(g_max, torch.maximum(g_min, mod_sum)).clamp(0, 65535)
@@ -437,11 +454,13 @@ def eval_value_agents(program, state, cv: CompiledValue) -> torch.Tensor:
 # Filters (reference: handler/filters/)
 # =====================================================================
 
-# Filter kinds this module evaluates; fast_mode_ok admits more, which raise.
+# Filter kinds this module evaluates (every kind the program compiler emits).
 PORTED_FILTERS = frozenset(
     {"target_loc_empty", "target_is_usable", "vibe", "resource", "tag", "tag_prefix", "shared_tag_prefix",
-     "game_value"}
+     "game_value", "max_distance", "not", "or", "periodic", "query_resource"}
 )
+# Query kinds eval_query_mask evaluates; step._unported refuses the others.
+PORTED_QUERIES = frozenset({"tag"})
 
 
 def eval_filter(program, state, ctx: Ctx, f: CompiledFilter, mtd=None) -> torch.Tensor:
@@ -495,7 +514,50 @@ def eval_filter(program, state, ctx: Ctx, f: CompiledFilter, mtd=None) -> torch.
         value = eval_value(program, state, f.value, slot, ctx, mtd)
         threshold = eval_value(program, state, f.threshold, slot, ctx, mtd)
         return value >= threshold
-    raise NotImplementedError(f"filter kind {f.kind!r} is not ported yet (ROADMAP Queue 1 item 4)")
+    B = tuple(ctx.actor.shape)
+    # An [E] per-env result broadcast over the rest of the batch shape.
+    per_env = (B[0],) + (1,) * (len(B) - 1)
+    if f.kind == "max_distance":
+        r2 = f.radius * f.radius
+        if f.query is not None:
+            # Unary: the entity lies within the radius of any query result.
+            qmask = eval_query_mask(program, state, f.query, ctx, mtd)  # [E, N]
+            dr = state.obj_r.reshape(per_env + (-1,)) - gather(state.obj_r, slot)[..., None]
+            dc = state.obj_c.reshape(per_env + (-1,)) - gather(state.obj_c, slot)[..., None]
+            within = (dr * dr + dc * dc) <= r2
+            return (slot >= 0) & (within & qmask.reshape(per_env + (-1,))).any(dim=-1)
+        if f.radius <= 0:
+            return torch.ones(B, dtype=torch.bool, device=ctx.actor.device)
+        # Binary: the target cell within the radius of the actor.
+        dr = ctx.target_r - eread(state.obj_r, ctx.actor, True)
+        dc = ctx.target_c - eread(state.obj_c, ctx.actor, True)
+        return dr * dr + dc * dc <= r2
+    if f.kind == "not":
+        return ~eval_filter(program, state, ctx, f.inner[0], mtd)
+    if f.kind == "or":
+        ok = torch.zeros(B, dtype=torch.bool, device=ctx.actor.device)
+        for sub in f.inner:
+            if mtd is None:
+                ok = ok | eval_filter(program, state, ctx, sub)
+            else:
+                # OrFilter short-circuits: a sub runs, and draws, only where
+                # no earlier sub passed.
+                with mtd.narrowed(_env_gate(~ok, "all")):
+                    ok = ok | eval_filter(program, state, ctx, sub, mtd)
+        return ok
+    if f.kind == "periodic":
+        t = ctx.bcast_timestep()
+        return (t >= f.start_on) & (torch.remainder(t - f.start_on, f.period) == 0)
+    if f.kind == "query_resource":
+        # The query results' summed inventories meet every minimum
+        # (handler/filters/query_resource_filter.hpp:26-43).
+        qmask = eval_query_mask(program, state, f.query, ctx, mtd)  # [E, N]
+        ok = torch.ones(B, dtype=torch.bool, device=ctx.actor.device)
+        for rid, amount in f.resource_mins:
+            total = torch.where(qmask, state.obj_inv[..., rid], 0).sum(dim=-1)  # [E]
+            ok = ok & (total.reshape(per_env) >= amount)
+        return ok
+    raise NotImplementedError(f"filter kind {f.kind!r} is not ported yet")
 
 
 def eval_filters(program, state, ctx: Ctx, filters, mtd=None) -> torch.Tensor:

@@ -7,36 +7,44 @@ try_apply: all filters pass, then mutations apply in order until one fails);
 here a handler runs for a whole batch at once. Mutations that can fail
 (use_target, push_object, spawn_object) return per-entry ok masks.
 
-This port runs the mutation kinds of the combat, general, wall_mood and
-tithe steps (relocate, resource_delta, direct_attack, use_target,
-change_vibe); the others raise
-NotImplementedError (ROADMAP Queue 1 items 2-3; inventory stats without
-compact stat storage, item 5). Every function works out of
-place.
+This port runs every mutation kind that writes no position but
+recompute_materialized_query, and of the position kinds relocate and swap;
+push_object, spawn_object, raycast_spawn and recompute_materialized_query
+raise NotImplementedError (ROADMAP Queue 1 item 3; inventory stats without
+compact stat storage, item 5). Every function works out of place.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mettagrid_tpu_torch.engine.exec import (
     Ctx,
     _env_gate,
     agent_slot_ok,
+    device_table,
     eval_filters,
+    eval_query_mask,
+    eval_value,
     gather,
     grid_write,
     inv_enforce_limits,
     inv_update,
     scatter,
+    type_select,
 )
 from mettagrid_tpu_torch.engine.ir import CompiledHandler, CompiledMultiHandler, CompiledValue
 from mettagrid_tpu_torch.engine.program import AMOUNT_STAT_BASE, AUTO_STAT_BASE
 
 _I32 = torch.int32
 
-# Mutation kinds apply_mutation runs; fast_mode_ok admits more, which raise.
-PORTED_MUTATIONS = frozenset({"relocate", "resource_delta", "direct_attack", "use_target", "change_vibe"})
+# Mutation kinds apply_mutation runs; step._unported refuses the others.
+PORTED_MUTATIONS = frozenset(
+    {"relocate", "swap", "resource_delta", "resource_transfer", "clear_inventory", "attack", "direct_attack",
+     "use_target", "change_vibe", "add_tag", "remove_tag", "remove_tags_with_prefix", "stats", "set_game_value",
+     "query_inventory"}
+)
 
 
 def _agent_rows(program, slot, rows, mask, dense_identity, actor_prefix):
@@ -62,20 +70,22 @@ class InvStatBatch:
     the batch reads an auto-stat lane (inv_stat_batch_ok): the reference
     applies writes at once."""
 
-    __slots__ = ("g", "l", "death")
+    __slots__ = ("g", "l", "dep", "death")
 
     def __init__(self):
-        self.g = self.l = self.death = None
+        self.g = self.l = self.dep = self.death = None
 
 
 def flush_inv_stat_batch(program, state, batch):
     """Apply a batch's accumulated emissions as one auto_stats update."""
-    if batch is None or (batch.g is None and batch.death is None):
+    if batch is None or (batch.g is None and batch.dep is None and batch.death is None):
         return state
     R = program.num_resources
     au = state.auto_stats.clone()
     if batch.g is not None:
         au[..., 0 : 2 * R] += torch.cat([batch.g, batch.l], dim=-1)
+    if batch.dep is not None:
+        au[..., 2 * R : 3 * R] += batch.dep
     if batch.death is not None:
         au[..., 3 * R] += batch.death
     return state._replace(auto_stats=au)
@@ -326,7 +336,201 @@ def apply_mutation(program, state, ctx: Ctx, m, mask: torch.Tensor, mtd=None):
     if m.kind == "use_target":
         return apply_use_target(program, state, ctx, mask, mtd)
 
-    raise NotImplementedError(f"mutation kind {m.kind!r} is not ported yet (ROADMAP Queue 1 items 2-3)")
+    if m.kind == "swap":
+        # Both entities must be agents, else a no-op; the actor logs
+        # "actions.swap" on success (swap_mutation.hpp:16-21). The grid and
+        # the positions are written actor first, then target.
+        A = program.num_agents
+        ar, ac = gather(state.obj_r, ctx.actor), gather(state.obj_c, ctx.actor)
+        tr, tc = gather(state.obj_r, ctx.target), gather(state.obj_c, ctx.target)
+        valid = mask & agent_slot_ok(ctx.actor, A) & agent_slot_ok(ctx.target, A)
+        if m.stat_id >= 0:
+            state = set_agent_stat(state, ctx.actor, m.stat_id, 1.0, valid, mode="add")
+        grid = grid_write(state.grid, ar, ac, ctx.target, valid)
+        grid = grid_write(grid, tr, tc, ctx.actor, valid)
+        obj_r = scatter(scatter(state.obj_r, ctx.actor, tr, valid), ctx.target, ar, valid)
+        obj_c = scatter(scatter(state.obj_c, ctx.actor, tc, valid), ctx.target, ac, valid)
+        return state._replace(grid=grid, obj_r=obj_r, obj_c=obj_c), ok
+
+    if m.kind == "resource_transfer":
+        return _resource_transfer(program, state, ctx, m, mask), ok
+
+    if m.kind == "clear_inventory":
+        # Each cleared item goes through Inventory::update, so the agent
+        # auto-stat families fire for every removed amount
+        # (resource_mutation.hpp:111-128).
+        slot = ctx.actor if m.target_is_actor else ctx.target
+        valid = mask & (slot >= 0)
+        if ctx.dense_identity:
+            tid, inv = state.obj_type, state.obj_inv
+        else:
+            tid, inv = gather(state.obj_type, slot), gather(state.obj_inv, slot)
+        rmask = type_select(program, tid, np.asarray(m.clear_mask, dtype=np.int32)) > 0  # [B, R]
+        new_inv = torch.where(rmask & valid[..., None], 0, inv)
+        obj_inv = new_inv if ctx.dense_identity else scatter(state.obj_inv, slot, new_inv, valid)
+        state = emit_inv_stats(
+            program, state._replace(obj_inv=obj_inv), slot, torch.where(valid[..., None], new_inv - inv, 0),
+            new_inv, valid, dense_identity=ctx.dense_identity, batch=ctx.inv_batch,
+        )
+        return state, ok
+
+    if m.kind == "attack":
+        return apply_attack(program, state, ctx, m, mask, mtd)
+
+    if m.kind in ("add_tag", "remove_tag", "remove_tags_with_prefix"):
+        slot = ctx.actor if m.target_is_actor else ctx.target
+        valid = mask & (slot >= 0)
+        tags = state.obj_tags if ctx.dense_identity else gather(state.obj_tags, slot)
+        if m.kind == "remove_tags_with_prefix":
+            tags = torch.where(valid[..., None] & device_table(program, m.tag_mask, slot.device), False, tags)
+        else:
+            tags = tags.clone()
+            tags[..., m.tag_id] = torch.where(valid, m.kind == "add_tag", tags[..., m.tag_id])
+        obj_tags = tags if ctx.dense_identity else scatter(state.obj_tags, slot, tags, valid)
+        return state._replace(obj_tags=obj_tags), ok
+
+    if m.kind == "stats":
+        slot = ctx.actor if m.entity_is_actor else ctx.target
+        value = eval_value(program, state, m.source, slot, ctx, mtd)
+        if m.stat_is_game:
+            # A game stat is written once per env: only [E] contexts.
+            assert mask.dim() == 1, "a game stats mutation needs a per-env context"
+            return set_game_stat(state, mask, m.stat_id, value), ok
+        return set_agent_stat(state, slot, m.stat_id, value, mask), ok
+
+    if m.kind == "set_game_value":
+        slot = ctx.actor if m.target_is_actor else ctx.target
+        valid = mask & (slot >= 0)
+        if m.source is not None:
+            delta = eval_value(program, state, m.source, slot, ctx, mtd)
+        else:
+            delta = torch.full(mask.shape, m.delta_const, dtype=torch.float32, device=mask.device)
+        if m.write_rid >= 0:
+            state, _ = entity_inv_update(program, state, slot, m.write_rid, delta.to(_I32), valid, batch=ctx.inv_batch)
+        elif m.stat_is_game:
+            assert mask.dim() == 1, "a game set_game_value mutation needs a per-env context"
+            # touch: the reference resolves the stat's pointer at apply time,
+            # which interns it even for a zero delta (game_value.cpp).
+            state = set_game_stat(state, valid, m.stat_id, delta, mode="add", touch=True)
+        else:
+            state = set_agent_stat(state, slot, m.stat_id, delta, valid, mode="add", touch=True)
+        return state, ok
+
+    if m.kind == "query_inventory":
+        return _query_inventory(program, state, ctx, m, mask, mtd), ok
+
+    raise NotImplementedError(f"mutation kind {m.kind!r} is not ported yet (ROADMAP Queue 1 item 3)")
+
+
+def _resource_transfer(program, state, ctx: Ctx, m, mask):
+    """Move resources from one entity to the other: the receiver accepts up
+    to its capacity and the source loses what was accepted; a negative
+    amount moves all the source holds (resource_mutation.hpp:60-86). An
+    agent source logs "<res>.deposited". remove_source_when_empty kills an
+    emptied source and clears its cell; under the lazy grid only agent
+    sources keep their cell, as nothing reads the grid's agent layer there
+    (the reference skips the clear for every source, leaving a non-agent
+    source's cell stale)."""
+    src = ctx.actor if m.from_is_actor else ctx.target
+    dst = ctx.actor if m.to_is_actor else ctx.target
+    valid = mask & (src >= 0) & (dst >= 0)
+    A, R = program.num_agents, program.num_resources
+    iota_a = torch.arange(A, dtype=_I32, device=mask.device)
+    for rid, amount in m.deltas:
+        src_inv = gather(state.obj_inv, src)[..., rid]
+        want = src_inv if amount < 0 else src_inv.clamp(max=amount)
+        state, accepted = entity_inv_update(program, state, dst, rid, want, valid, batch=ctx.inv_batch)
+        state, _ = entity_inv_update(program, state, src, rid, -accepted, valid, batch=ctx.inv_batch)
+        # (Without compact stat storage the updates above have raised.)
+        dep_ok = valid & agent_slot_ok(src, A) & (accepted > 0)
+        add = torch.where((src[..., None] == iota_a) & dep_ok[..., None], accepted[..., None], 0)
+        while add.dim() > 2:  # [E, K, A] -> [E, A]: slots are unique per call
+            add = add.sum(dim=1, dtype=_I32)
+        if ctx.inv_batch is not None:
+            row = torch.zeros(add.shape + (R,), dtype=_I32, device=add.device)
+            row[..., rid] = add
+            b = ctx.inv_batch
+            b.dep = row if b.dep is None else b.dep + row
+        else:
+            au = state.auto_stats.clone()
+            au[..., int(program.stat_inv_deposited[rid]) - AUTO_STAT_BASE] += add
+            state = state._replace(auto_stats=au)
+    if m.remove_source_when_empty:
+        rm = valid & (gather(state.obj_inv, src).sum(dim=-1) == 0)
+        clear = rm & (src >= A) if ctx.lazy_grid else rm
+        grid = grid_write(state.grid, gather(state.obj_r, src), gather(state.obj_c, src), -1, clear)
+        state = state._replace(grid=grid, obj_alive=scatter(state.obj_alive, src, False, rm))
+    return state
+
+
+def _query_inventory(program, state, ctx: Ctx, m, mask, mtd=None):
+    """Inventory deltas across a query's results; in transfer mode the net
+    applied amount leaves the source entity, and transfer stats log the
+    moved quantity (mutation_config.hpp:94-103)."""
+    env_any = _env_gate(mask, "any")
+    targets = eval_query_mask(program, state, m.query, None, mtd) & env_any[:, None]  # [E, N]
+    E, N = targets.shape
+    src = ctx.actor if m.from_is_actor else ctx.target
+    if src.dim() > 1:  # a batch context has no single source
+        src = torch.full((E,), -1, dtype=_I32, device=mask.device)
+    slots_n = torch.arange(N, dtype=_I32, device=mask.device)[None, :].expand(E, N)
+    for rid, delta in m.deltas:
+        inv_all = state.obj_inv
+        new_inv, actual = inv_update(program, state.obj_type, inv_all, rid, torch.full_like(state.obj_type, delta), targets)
+        # Agent targets change through the notifying update path, so the
+        # auto-stat families fire for them (agent.cpp:100-120).
+        state = emit_inv_stats(
+            program, state._replace(obj_inv=new_inv), slots_n, torch.where(targets[..., None], new_inv - inv_all, 0),
+            new_inv, targets, dense_identity=True, batch=ctx.inv_batch,
+        )
+        net = actual.sum(dim=1, dtype=_I32)  # [E]
+        if m.transfer_mode:
+            state, _ = entity_inv_update(program, state, src, rid, -net, env_any & (src >= 0), batch=ctx.inv_batch)
+        for srid, stat_id in m.transfer_stats:
+            if srid == rid:
+                state = set_game_stat(state, env_any, stat_id, net.abs().to(torch.float32), mode="add")
+    return state
+
+
+def apply_attack(program, state, ctx: Ctx, m, mask, mtd=None):
+    """The DSL attack (config attack_mutation; actions/attack.hpp:146-237):
+    weapon power against armor power (vibe bonuses included); a target that
+    can pay every defense cost plus the excess blocks and pays it, otherwise
+    the on_success mutations apply. Never fails."""
+    actor, target = ctx.actor, ctx.target
+    valid = mask & (actor >= 0) & (target >= 0)
+    a_inv = state.obj_inv[:, : actor.shape[1]] if ctx.actor_prefix else gather(state.obj_inv, actor)
+    t_inv = gather(state.obj_inv, target)
+    weapon = torch.zeros(mask.shape, dtype=_I32, device=mask.device)
+    for rid, w in m.weapon:
+        weapon = weapon + a_inv[..., rid] * w
+    armor = torch.zeros_like(weapon)
+    bonus_by_vibe = None
+    if m.vibe_bonus is not None and m.vibe_matches_resource is not None:
+        t_vibe = gather(state.obj_vibe, target).long()
+        vb = device_table(program, m.vibe_bonus, mask.device)
+        vm = device_table(program, m.vibe_matches_resource, mask.device)
+        bonus_by_vibe = vb[t_vibe], vm[t_vibe]  # [B], [B, R]
+    for rid, w in m.armor:
+        amount = t_inv[..., rid]
+        if bonus_by_vibe is not None:
+            amount = amount + torch.where(bonus_by_vibe[1][..., rid], bonus_by_vibe[0], 0)
+        armor = armor + amount * w
+    damage_bonus = (weapon - armor).clamp(min=0)
+    can_defend = valid if m.defense else torch.zeros_like(valid)
+    for rid, amount in m.defense:
+        can_defend = can_defend & (t_inv[..., rid] >= amount + damage_bonus)
+    for rid, amount in m.defense:
+        state, _ = entity_inv_update(program, state, target, rid, -(amount + damage_bonus), can_defend,
+                                     batch=ctx.inv_batch)
+    hit = valid & ~can_defend
+    for sub in m.on_success:
+        if mtd is None:
+            state, _ = apply_mutation(program, state, ctx, sub, hit)
+        else:
+            with mtd.narrowed(_env_gate(hit, "any")):
+                state, _ = apply_mutation(program, state, ctx, sub, hit, mtd)
+    return state, torch.ones_like(mask)
 
 
 def _direct_attack_in_order(program, state, ctx: Ctx, m, valid):

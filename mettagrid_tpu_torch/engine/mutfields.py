@@ -100,10 +100,12 @@ def _mutation_fields(m, any_usable: bool = True, lazy: bool = False) -> frozense
         # target type's on_use chain (walked separately); with no usable
         # types it provably no-ops (same argument as obs._mutation_bg_inert).
         base = _INV_FIELDS if any_usable else frozenset()
-    if lazy and (m.kind == "relocate" or base is _INV_FIELDS or m.kind in _INV_KINDS):
+    removes_object = m.kind == "resource_transfer" and m.remove_source_when_empty
+    if lazy and (m.kind == "relocate" or base is _INV_FIELDS or m.kind in _INV_KINDS) and not removes_object:
         # Batch contexts under the lazy/gridless gates skip every
-        # agent-layer grid write (relocate + remove-when-empty honor
-        # Ctx.lazy_grid); swap/push keep theirs and stay tainting.
+        # agent-layer grid write (relocate honors Ctx.lazy_grid); swap/push
+        # keep theirs and stay tainting, and so does remove-when-empty,
+        # which clears a non-agent source's cell even there.
         base = base - {"grid"}
     out = set(base)
     for s in getattr(m, "on_success", ()) or ():

@@ -41,9 +41,9 @@ from mettagrid_tpu_torch.engine.actions_fast import (
 )
 from mettagrid_tpu_torch.engine.aoe import general_mutations, make_aoe_phase
 from mettagrid_tpu_torch.engine.events import make_event_phase
-from mettagrid_tpu_torch.engine.exec import PORTED_FILTERS, Ctx, MtThread, RankDraws
+from mettagrid_tpu_torch.engine.exec import PORTED_FILTERS, PORTED_QUERIES, Ctx, MtThread, RankDraws
 from mettagrid_tpu_torch.engine.handlers import PORTED_MUTATIONS, try_apply
-from mettagrid_tpu_torch.engine.ir import CompiledHandler
+from mettagrid_tpu_torch.engine.ir import CompiledHandler, CompiledQuery
 from mettagrid_tpu_torch.engine.init import EnvInit, stat_dims
 from mettagrid_tpu_torch.engine.mt19937 import mt_init, shuffle_perm
 from mettagrid_tpu_torch.engine.mutfields import POOL_FIELDS, maybe_written_pool_fields
@@ -118,6 +118,23 @@ def _handler_kinds(h, filters: set, mutations: set):
     _chain_kinds(h.filters, h.mutations, filters, mutations)
 
 
+def _query_kinds(node, kinds: set, seen: set):
+    """Collect the kinds of every query reachable from compiled IR: the
+    queries of filters, values, mutations and event targets, and the
+    queries those nest."""
+    if node is None or id(node) in seen or isinstance(node, (str, bytes, np.ndarray)):
+        return
+    seen.add(id(node))
+    if isinstance(node, CompiledQuery):
+        kinds.add(node.kind)
+    if isinstance(node, (list, tuple)):
+        for x in node:
+            _query_kinds(x, kinds, seen)
+    elif hasattr(node, "__dataclass_fields__"):
+        for f in node.__dataclass_fields__:
+            _query_kinds(getattr(node, f), kinds, seen)
+
+
 def _unported(program: EngineProgram, reference_rng: bool = False):
     """Raise for program features whose phases are not ported yet, and under
     reference_rng for the constructs whose draws the reference's twin cannot
@@ -143,14 +160,17 @@ def _unported(program: EngineProgram, reference_rng: bool = False):
     ) or any(handler_consumes(h, program) for h in dense_handlers):
         missing.append("order_by=random queries in AOE or territory handlers (ROADMAP Queue 1 item 4)")
     for ev in program.events:
-        q = ev.target_query
-        if q.kind != "tag":
-            missing.append("event target queries other than tag queries (ROADMAP Queue 1 item 4)")
-        filters.update(f.kind for f in q.filters)
+        filters.update(f.kind for f in ev.target_query.filters)
     if filters - PORTED_FILTERS:
         missing.append(f"filter kinds {sorted(filters - PORTED_FILTERS)} (ROADMAP Queue 1 item 4)")
     if mutations - PORTED_MUTATIONS:
-        missing.append(f"mutation kinds {sorted(mutations - PORTED_MUTATIONS)} (ROADMAP Queue 1 items 2-3)")
+        missing.append(f"mutation kinds {sorted(mutations - PORTED_MUTATIONS)} (ROADMAP Queue 1 item 3)")
+    # Every query the step can evaluate: handlers, AOE, events, rewards and
+    # value observations (the program holds them all).
+    queries = set()
+    _query_kinds([getattr(program, f) for f in program.__dataclass_fields__], queries, set())
+    if queries - PORTED_QUERIES:
+        missing.append(f"query kinds {sorted(queries - PORTED_QUERIES)} (ROADMAP Queue 1 item 4)")
     if program.materialized:
         missing.append("materialized queries (ROADMAP Queue 1 item 3)")
     if missing:
@@ -784,5 +804,6 @@ def make_step(
         return state, out
 
     step.obs_fn = obs_fn
+    step.action_phase = action_phase
     step.action_phase_kind = "waves" if use_fast else "sequential"
     return step

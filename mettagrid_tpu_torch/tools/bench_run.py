@@ -51,6 +51,24 @@ and those of the v3 tails and of the reference-RNG step:
   event's shuffles and the query's picks, and the action phase is
   sequential.
 
+and the full-combat family:
+
+* ``full_combat``: the reference's own full-combat parity family
+  (mettagrid_tpu/parity/arena.py:368-406, 598-604, 627-644): the combat
+  arena with change_vibe and three move handlers, ``shield_break`` (an
+  angry actor takes one armor from a shielding target), ``melee`` (an angry
+  actor loots one ore_red, then hits with DirectAttack) and ``bump_swap``
+  (a clown-vibed actor swaps places with the agent it bumps); agent i
+  starts with the loadout {laser: 3 + i % 3, armor: i % 4, heart: 30,
+  ore_red: 2 + i % 2}, written into the pooled maps' initial inventories as
+  the family writes it on the host, with full_token_bounds on. The
+  reachable swap takes the action phase onto the Chebyshev waves; the loot
+  makes the background mutable, and full_token_bounds gives 23 token slots
+  per cell, so the observations take the non-fused path (kernels B7 and
+  B8). Its actions follow the family's script:
+  primary actions uniform over noop and the four moves, vibe actions one of
+  angry, shield, clown or default four times in ten (else none).
+
 Each runs over a pool of random maps (25x25 but for arena_128) whose seeds
 come from np.random.default_rng(0).
 """
@@ -73,8 +91,11 @@ POOL = 64
 WARMUP = 8
 VARIANTS = (
     "flagship", "combat", "general", "arena_lp", "arena_values", "general_lp", "arena_128", "territory",
-    "flagship_v3", "arena_mood", "arena_mood_v3", "tithe_rrng",
+    "flagship_v3", "arena_mood", "arena_mood_v3", "tithe_rrng", "full_combat",
 )
+# The vibes the full-combat script picks, and how often (parity/arena.py:627-644).
+FULL_COMBAT_VIBES = ("angry", "shield", "clown", "default")
+FULL_COMBAT_VIBE_SHARE = 0.4
 # Shrines of the tithe family, renamed from reachable walls of each map.
 TITHE_SHRINES = 8
 
@@ -237,6 +258,93 @@ def make_tithe_cfg(num_agents: int):
     return cfg
 
 
+def make_full_combat_cfg(num_agents: int):
+    """The full-combat parity family (parity/arena.py:368-406): make_arena
+    with change_vibe and the shield_break, melee and bump_swap move handlers,
+    full_token_bounds on because the loadouts are written into the maps'
+    initial inventories (full_combat_loadouts) as the family sets them on
+    the host."""
+    from mettagrid_tpu_torch.config.action_config import ChangeVibeActionConfig
+    from mettagrid_tpu_torch.config.handler_config import (
+        DirectAttackMutation,
+        EntityTarget,
+        Handler,
+        HandlerTarget,
+        ResourceDeltaMutation,
+        ResourceTransferMutation,
+        SwapMutation,
+        VibeFilter,
+    )
+
+    cfg = make_arena(num_agents)
+    cfg.game.actions.change_vibe = ChangeVibeActionConfig()
+    cfg.game.actions.move.handlers = [
+        Handler(
+            name="shield_break",
+            filters=[VibeFilter(target=HandlerTarget.ACTOR, vibe="angry"),
+                     VibeFilter(target=HandlerTarget.TARGET, vibe="shield")],
+            mutations=[ResourceDeltaMutation(target=EntityTarget.TARGET, deltas={"armor": -1})],
+        ),
+        Handler(
+            name="melee",
+            filters=[VibeFilter(target=HandlerTarget.ACTOR, vibe="angry")],
+            mutations=[
+                ResourceTransferMutation(from_target=EntityTarget.TARGET, to_target=EntityTarget.ACTOR,
+                                         resources={"ore_red": 1}),
+                DirectAttackMutation(weapon_resource="laser", armor_resource="armor", health_resource="heart"),
+            ],
+        ),
+        Handler(
+            name="bump_swap",
+            filters=[VibeFilter(target=HandlerTarget.ACTOR, vibe="clown")],
+            mutations=[SwapMutation()],
+        ),
+    ]
+    cfg.game.obs.full_token_bounds = True
+    return cfg
+
+
+def full_combat_loadouts(program, obj_inv: np.ndarray) -> np.ndarray:
+    """A copy of the pooled initial inventories int32[P, N, R] in which
+    agent i holds {laser: 3 + i % 3, armor: i % 4, heart: 30, ore_red:
+    2 + i % 2} (parity/arena.py:598-604)."""
+    out = np.array(obj_inv, copy=True)
+    rid = {n: i for i, n in enumerate(program.resource_names)}
+    for i in range(program.num_agents):
+        for name, amount in (("laser", 3 + i % 3), ("armor", i % 4), ("heart", 30), ("ore_red", 2 + i % 2)):
+            out[:, i, rid[name]] = amount
+    return out
+
+
+def full_combat_action_ids(program):
+    """The full-combat script's primary actions (noop and the four moves) and
+    vibe actions (FULL_COMBAT_VIBES), as action indices."""
+    names = program.action_names
+    prim = [i for i, n in enumerate(names) if n == "noop" or n.startswith("move_")]
+    return prim, [names.index(f"change_vibe_{v}") for v in FULL_COMBAT_VIBES]
+
+
+def full_combat_actions(program, generator, shape, device):
+    """One step's (primary, vibe) actions of the full-combat script, drawn
+    on ``device``: primary uniform over noop and the four moves; vibe one of
+    FULL_COMBAT_VIBES with probability FULL_COMBAT_VIBE_SHARE, else noop (no
+    vibe change)."""
+    prim, focus = (torch.tensor(ids, dtype=torch.int32, device=device) for ids in full_combat_action_ids(program))
+    acts = prim[torch.randint(0, len(prim), shape, generator=generator, device=device)]
+    pick = torch.rand(shape, generator=generator, device=device) < FULL_COMBAT_VIBE_SHARE
+    vibes = torch.where(pick, focus[torch.randint(0, len(focus), shape, generator=generator, device=device)], 0)
+    return acts, vibes
+
+
+def full_combat_script(program, rng: np.random.Generator, shape):
+    """full_combat_actions drawn with numpy (int32 arrays), for runs that
+    feed one script to two engines or devices."""
+    prim, focus = (np.array(ids) for ids in full_combat_action_ids(program))
+    acts = prim[rng.integers(0, len(prim), shape)].astype(np.int32)
+    vibes = np.where(rng.random(shape) < FULL_COMBAT_VIBE_SHARE, focus[rng.integers(0, len(focus), shape)], 0)
+    return acts, vibes.astype(np.int32)
+
+
 def rename_walls(grid, names):
     """A copy of map grid ``grid`` whose interior walls with an empty
     orthogonal neighbour (those agents can bump), taken in raster order at a
@@ -271,6 +379,8 @@ def make_cfg(variant: str, num_agents: int = AGENTS):
         return make_tithe_cfg(num_agents)
     if variant == "combat":
         return make_combat_cfg(num_agents)
+    if variant == "full_combat":
+        return make_full_combat_cfg(num_agents)
     if variant == "territory":
         return make_territory_cfg(num_agents)
     if variant.startswith("general"):
@@ -287,11 +397,12 @@ def make_cfg(variant: str, num_agents: int = AGENTS):
     return cfg
 
 
-def build_pool(cfg, pool: int, max_steps: int | None = None):
+def build_pool(cfg, pool: int, max_steps: int | None = None, loadouts: bool = False):
     """(program, init) of ``cfg`` with ``pool`` maps from its map builder,
     seeded from np.random.default_rng(0) as bench.py:103-108 seeds them. A
     config with shrine objects gets TITHE_SHRINES of each map's walls
-    renamed to shrines (rename_walls)."""
+    renamed to shrines (rename_walls); ``loadouts`` writes the full-combat
+    loadouts into the maps' initial inventories (full_combat_loadouts)."""
     if max_steps is not None:
         cfg.game.max_steps = max_steps
     program = compile_program(cfg)
@@ -304,56 +415,106 @@ def build_pool(cfg, pool: int, max_steps: int | None = None):
         if "shrine" in cfg.game.objects:
             game_map.grid = rename_walls(game_map.grid, ["shrine"] * TITHE_SHRINES)
         maps.append(game_map)
-    return program, build_env_init(program, maps)
+    init = build_env_init(program, maps)
+    if loadouts:
+        init.obj_inv = full_combat_loadouts(program, init.obj_inv)
+    return program, init
 
 
 class BenchRun:
-    """One variant's main path on the CUDA device: ENVS envs x AGENTS agents,
-    POOL maps, auto-reset on, the observation buffer carried from step to
-    step. Primary actions are uniform over the action space; for the combat
-    and general configs the vibe actions are too (bench.py:190-200), for the
-    arena ones they are 0. All draws, the agent orders and the event ranks
-    come from one CUDA generator seeded with ``seed``; under the
+    """One variant's main path: ``envs`` envs (ENVS by default) x AGENTS
+    agents, ``pool`` maps (POOL), auto-reset on, the observation buffer
+    carried from step to step, on the CUDA device unless ``device`` says
+    otherwise. Primary actions are uniform over the action space; for the
+    combat and general configs the vibe actions are too (bench.py:190-200),
+    for the arena ones they are 0; full_combat follows its family's script
+    (full_combat_actions). All draws, the agent orders and the event ranks
+    come from one generator on the device seeded with ``seed``; under the
     reference-RNG step (tithe_rrng) the MT19937 twin draws the agent orders,
     the events' shuffles and the query picks instead."""
 
-    def __init__(self, variant: str, seed: int):
-        self.variant = variant
-        self.program, init = build_pool(make_cfg(variant), POOL)
-        self.generator = torch.Generator(device="cuda")
+    def __init__(self, variant: str, seed: int, envs: int = ENVS, device: str = "cuda", pool: int = POOL):
+        self.variant, self.envs, self.device = variant, envs, device
+        self.program, init = build_pool(make_cfg(variant), pool, loadouts=variant == "full_combat")
+        self.generator = torch.Generator(device=device)
         self.generator.manual_seed(seed)
         opts = variant_options(variant)
-        self.reset = make_reset(self.program, init, ENVS, **opts)
-        self.step = make_step(self.program, init, auto_reset=True, generator=self.generator, **opts)
+        self.reset = make_reset(self.program, init, envs, device=device, **opts)
+        self.step = make_step(self.program, init, auto_reset=True, generator=self.generator, device=device, **opts)
         self._n_actions = len(self.program.action_names)
         self._vibes = variant in ("combat", "general", "general_lp")
         self.last_actions = None
+        self.waves = []
 
     def _draw(self):
-        return torch.randint(
-            0, self._n_actions, (ENVS, AGENTS), generator=self.generator, device="cuda", dtype=torch.int32
-        )
+        return torch.randint(0, self._n_actions, (self.envs, AGENTS), generator=self.generator, device=self.device,
+                             dtype=torch.int32)
 
     def run(self, state, out, n: int):
         """n steps from (state, out); returns the last (state, out). The last
-        step's primary actions are kept in ``last_actions``."""
+        step's primary actions are kept in ``last_actions``, and each step's
+        wave count (the wave phase's action_phase.waves) is appended to
+        ``waves``."""
         for _ in range(n):
-            acts = self._draw()
-            vibes = self._draw() if self._vibes else torch.zeros_like(acts)
+            if self.variant == "full_combat":
+                acts, vibes = full_combat_actions(self.program, self.generator, (self.envs, AGENTS), self.device)
+            else:
+                acts = self._draw()
+                vibes = self._draw() if self._vibes else torch.zeros_like(acts)
             state, out = self.step(state, acts, vibes, None, out.observations)
+            self.waves.append(getattr(self.step.action_phase, "waves", 0))
             self.last_actions = acts
         return state, out
+
+    def _sync(self):
+        if self.device != "cpu":
+            torch.cuda.synchronize()
 
     def timed(self, state, out, n: int):
         """n steps, timed by the host clock between two device syncs; returns
         (state, out, seconds)."""
-        torch.cuda.synchronize()
+        self._sync()
         t0 = time.perf_counter()
         state, out = self.run(state, out, n)
-        torch.cuda.synchronize()
+        self._sync()
         return state, out, time.perf_counter() - t0
 
     def warmed_up(self):
         """(state, out) after a reset and WARMUP steps."""
         state, out = self.reset(0)
         return self.run(state, out, WARMUP)
+
+
+def main(argv=None) -> dict:
+    """Steps a variant after the warm-up and prints one JSON object: the
+    host-clock ms per step, env-steps/s and the wave phase's waves per step
+    (mean and largest) over the timed steps.
+
+        python -m mettagrid_tpu_torch.tools.bench_run --variant full_combat [--envs E] [--pool P] [--steps N] [--device cpu]
+    """
+    import argparse
+    import json
+
+    ap = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
+    ap.add_argument("--variant", choices=VARIANTS, default="flagship")
+    ap.add_argument("--envs", type=int, default=ENVS)
+    ap.add_argument("--pool", type=int, default=POOL)
+    ap.add_argument("--steps", type=int, default=32)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    bench = BenchRun(args.variant, seed=7, envs=args.envs, device=args.device, pool=args.pool)
+    state, out = bench.warmed_up()
+    state, out, secs = bench.timed(state, out, args.steps)
+    waves = bench.waves[-args.steps:]
+    report = {
+        "variant": args.variant, "device": args.device, "envs": args.envs, "agents": AGENTS, "pool": args.pool,
+        "steps": args.steps, "action_phase": bench.step.action_phase_kind, "obs_route": bench.step.obs_fn.route,
+        "step_ms_host_clock": secs / args.steps * 1e3, "env_steps_per_s": args.envs * args.steps / secs,
+        "waves_per_step_mean": sum(waves) / len(waves), "waves_per_step_max": max(waves),
+    }
+    print(json.dumps(report))
+    return report
+
+
+if __name__ == "__main__":
+    main()

@@ -4,18 +4,19 @@
 
 V is one of tools/bench_run.py's variants: flagship (the default), combat,
 general, arena_lp, arena_values, general_lp, arena_128, territory, flagship_v3,
-arena_mood, arena_mood_v3, tithe_rrng. Steps the variant (4096 envs x 24
-agents, a pool of 64 maps, auto-reset, observations carried) on the CUDA
-device, with the variant's observation tail and, for tithe_rrng, the
-reference-RNG step. After the warm-up it times --steps steps (32 by
+arena_mood, arena_mood_v3, tithe_rrng, full_combat. Steps the variant (4096
+envs x 24 agents, a pool of 64 maps, auto-reset, observations carried) on
+the CUDA device, with the variant's observation tail and, for tithe_rrng,
+the reference-RNG step. After the warm-up it times --steps steps (32 by
 default) by the host clock without the profiler, then traces as many more
 with torch.profiler and reports, per step:
 the host time of each step phase (the ``step.*`` spans of engine/step.py)
 and the device time of the kernels that start inside it, the device's busy
 time and idle share (one minus kernel time over the untraced step time),
 the kernel launches, the kernels that take the most device time, the
-observation route (obs_fn.route) and the peak device memory from the
-start of the run. Prints one JSON object and writes it to --out.
+observation route (obs_fn.route), the action phase and its waves per step
+(mean and largest over the untraced steps) and the peak device memory from
+the start of the run. Prints one JSON object and writes it to --out.
 """
 
 from __future__ import annotations
@@ -33,26 +34,15 @@ from mettagrid_tpu_torch.tools.bench_run import AGENTS, ENVS, POOL, VARIANTS, Be
 STEPS = 32
 
 
-def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--variant", choices=VARIANTS, default="flagship")
-    ap.add_argument("--out", type=Path, default=None)
-    ap.add_argument("--steps", type=int, default=STEPS)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_step needs a CUDA device")
-
-    n = args.steps
-    torch.cuda.reset_peak_memory_stats()
-    bench = BenchRun(args.variant, seed=7)
-    state, out = bench.warmed_up()
-    state, out, secs = bench.timed(state, out, n)
-    plain_ms = secs / n * 1e3
-
+def trace(bench, state, out, n: int):
+    """n more steps of ``bench`` under torch.profiler. Returns (state, out,
+    per-step figures): the traced host ms, the device's busy ms, the kernel
+    launches, each ``step.*`` span's host ms and the device ms of the
+    kernels that start inside it, and the kernels that take the most device
+    time."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         state, out, secs = bench.timed(state, out, n)
-    traced_ms = secs / n * 1e3
     cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
     spans: dict = {}
     windows = []  # (start_us, end_us, name) of each step.* span on the device timeline
@@ -78,8 +68,35 @@ def main(argv=None) -> dict:
         k = by_name.setdefault(name, [0.0, 0])
         k[0] += dur / 1e3 / n
         k[1] += 1
-    busy_ms = sum(k[0] for k in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    return state, out, {
+        "step_ms_traced": secs / n * 1e3,
+        "device_busy_ms_per_step": sum(k[0] for k in by_name.values()),
+        "kernel_launches_per_step": sum(k[1] for k in by_name.values()) / n,
+        "spans": spans,
+        "top_kernels": [{"name": name[:120], "device_ms": ms, "per_step": cnt / n} for name, (ms, cnt) in top],
+    }
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--variant", choices=VARIANTS, default="flagship")
+    ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--steps", type=int, default=STEPS)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA device")
+
+    n = args.steps
+    torch.cuda.reset_peak_memory_stats()
+    bench = BenchRun(args.variant, seed=7)
+    state, out = bench.warmed_up()
+    state, out, secs = bench.timed(state, out, n)
+    plain_ms = secs / n * 1e3
+
+    waves = bench.waves[-n:]
+    state, out, traced = trace(bench, state, out, n)
+    busy_ms = traced["device_busy_ms_per_step"]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -94,15 +111,13 @@ def main(argv=None) -> dict:
         "action_phase": bench.step.action_phase_kind,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         "steps": n,
+        "waves_per_step_mean": sum(waves) / n,
+        "waves_per_step_max": max(waves),
         "step_ms_host_clock": plain_ms,
         "env_steps_per_s": ENVS / (plain_ms / 1e3),
-        "step_ms_traced": traced_ms,
-        "device_busy_ms_per_step": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / plain_ms),
-        "device_idle_share_traced": max(0.0, 1.0 - busy_ms / traced_ms),
-        "kernel_launches_per_step": sum(k[1] for k in by_name.values()) / n,
-        "spans": spans,
-        "top_kernels": [{"name": name[:120], "device_ms": ms, "per_step": cnt / n} for name, (ms, cnt) in top],
+        **traced,
+        "device_idle_share_traced": max(0.0, 1.0 - busy_ms / traced["step_ms_traced"]),
     }
     text = json.dumps(report)
     print(text)

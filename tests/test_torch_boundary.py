@@ -164,7 +164,7 @@ def test_b2_wrapper_takes_plain_version_on_cpu():
 def test_unported_constructs_raise():
     """Kinds outside this slice raise when the step is made, naming their
     ROADMAP item."""
-    from mettagrid_tpu_torch.config.handler_config import Handler, HandlerTarget, ResourceFilter, SwapMutation
+    from mettagrid_tpu_torch.config.handler_config import Handler, HandlerTarget, PushObjectMutation, ResourceFilter
     from mettagrid_tpu_torch.engine import build_env_init, compile_program, make_step
     from mettagrid_tpu_torch.maps.random_map import RandomMapBuilder
     from mettagrid_tpu_torch.tools.bench_run import make_combat_cfg
@@ -172,14 +172,14 @@ def test_unported_constructs_raise():
     cfg = make_combat_cfg(4)
     cfg.game.map_builder = RandomMapBuilder.Config(agents=4, width=11, height=11, border_width=1, objects={"wall": 6})
     cfg.game.actions.move.handlers = [
-        Handler(name="swap", filters=[ResourceFilter(target=HandlerTarget.ACTOR, resources={"laser": 1})],
-                mutations=[SwapMutation()])
+        Handler(name="push", filters=[ResourceFilter(target=HandlerTarget.ACTOR, resources={"laser": 1})],
+                mutations=[PushObjectMutation()])
     ]
     program = compile_program(cfg)
     b = cfg.game.map_builder.create()
     b.config.seed = 1
     init = build_env_init(program, [b.build_for_num_agents(4)])
-    with pytest.raises(NotImplementedError, match=r"mutation kinds \['swap'\] \(ROADMAP Queue 1 items 2-3\)"):
+    with pytest.raises(NotImplementedError, match=r"mutation kinds \['push_object'\] \(ROADMAP Queue 1 item 3\)"):
         make_step(program, init, device="cpu")
 
 
