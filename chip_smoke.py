@@ -144,7 +144,20 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
     launches per step, the device's busy time and idle share; then the GPU
     path against the CPU path (64 envs, pool 3, max_steps 10, 24 steps) with
     the Chebyshev waves and with the sequential phase, every output and
-    every state field but rng byte-equal.
+    every state field but rng byte-equal;
+26. B7 against its plain version on seeded synthetic inputs, word for word,
+    under every launch plan that holds the shapes (16-byte entries; word
+    entries stored four at a time; word entries stored one at a time):
+    channels per cell of 9 and 1 and of 24 and 4, an env output of partial
+    16-byte units, the territory and full_combat images and a larger one,
+    1, 7, 133 and 4099 envs, windows partly outside the image (row0 -1,
+    lane0 at or past the last cell) and lane0 off a 16-byte unit; prints
+    each launch's plan and time.
+
+In phases 14 and 25 B7's library yardstick (``library_ms``) is one
+torch.gather of the image over a precomputed index of every window word,
+which computes B7's function where every window lies inside the image (the
+index build is not timed); the port never calls it.
 
 Every phase asserts. The line before the last is the kernels' JSON record;
 the last line is {"ok": true, "device": {...}}. With no CUDA device, or
@@ -328,8 +341,9 @@ def _record(name: str, err: int, kernel_ms: float, call_ms: float, plain_ms: flo
     launch (queued launches), ``call_ms`` the wrapper's time per call issued
     back to back (the host's rate where it is the slower); the bound is the
     larger of the bytes over the card's memory rate and the operations over
-    its scalar rate. No single PyTorch call computes any of these
-    functions."""
+    its scalar rate. ``library_ms`` stays None where no single PyTorch call
+    computes the function (every kernel but B7, whose caller times a
+    gather)."""
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     return {
@@ -623,23 +637,40 @@ def _tithe_path(torch, card: str):
 def _nonfused_records(torch, fn, state):
     """The non-fused path's kernels B7 (window slices) and B8 (row
     compaction) against their plain versions on a live state, word for word,
-    timed, with the bound from these inputs. Returns (B7's record, B8's, a
-    note of the shapes)."""
+    timed, with the bound from these inputs; B7's library yardstick is one
+    torch.gather of the image over a precomputed index of every window word
+    (the index build not timed), where every window lies inside the image,
+    else None. Returns (B7's record, B8's, a note of the shapes and B7's
+    plan)."""
+    from mettagrid_tpu_torch.engine.kernels.window_slices import window_slices
+    from mettagrid_tpu_torch.tools.b7_sweep import gather_index
+
     wargs = fn.window_inputs(state)
     E, A = wargs["row0"].shape
     K, Ch = wargs["geom"].shape[0], wargs["Ch"]
+    HP, WPC = wargs["img"].shape[1:]
     # The image words inside some window are read once, the windows written once.
     window = dict(imgp=wargs["img"], row0=wargs["row0"], lane0=wargs["lane0"], geom=wargs["geom"], S=Ch)
     read = (_window_words(torch, window) + 2 * E * A + 3 * K) * 4
     b7 = _kernel_record(torch, "window_slices", wargs, read + E * A * K * Ch * 4, E * A * K * Ch)
-    del wargs, window
+    plan = window_slices.last_launch
+    idx = gather_index(**wargs)
+    if idx is not None:
+        flat = wargs["img"].view(E, -1)
+        assert torch.equal(torch.gather(flat, 1, idx).view(E, A, K, Ch), window_slices(**wargs))
+        b7["library_ms"] = _time_ms(torch, lambda: torch.gather(flat, 1, idx), 50, queued=True)
+    del wargs, window, idx
     cargs = fn.compact_inputs(state)
     R, C = cargs["words"].shape
     T = cargs["T"]
     valid = float((cargs["words"] >= 0).float().mean())
     b8 = _kernel_record(torch, "compact_rows", cargs, (R * C + R * T) * 4, R * C)
-    return b7, b8, (f"({E} x {A} windows of {K} cells x {Ch} channels; {R} rows of {C} words, {valid:.3f} valid, "
-                    f"budget {T})")
+    gather = "none: a window leaves the image" if b7["library_ms"] is None else f"{b7['library_ms']:.4f} ms"
+    return b7, b8, (f"({E} x {A} windows of {K} cells x {Ch} channels, image {HP}x{WPC}, "
+                    f"B7 {plan['vec']}-word entries, {plan['store']}-word stores, grid {plan['grid']} "
+                    f"({plan['blocks_per_sm']} blocks per SM allowed), {plan['warps']} warps, "
+                    f"{plan['registers']} registers, gather yardstick {gather}; {R} rows of {C} words, {valid:.3f} "
+                    f"valid, budget {T})")
 
 
 def _territory_paths(torch, card: str):
@@ -737,7 +768,8 @@ def _full_combat(torch, card: str):
         print(f"[25] GPU path equals the CPU path on full_combat ({'Chebyshev waves' if mode == 'auto' else mode} "
               "action phase) over 24 steps of 64 envs, pool of 3 maps, with auto-resets (every output, every state "
               "field but rng)", flush=True)
-    return {k: {"launches": launches, **{f: r[f] for f in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")}}
+    return {k: {"launches": launches, **{f: r[f] for f in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                                                           "library_ms")}}
             for k, r in (("B7", b7), ("B8", b8))}
 
 
@@ -1039,6 +1071,62 @@ def _b3_b6a_tails(torch):
     assert ran == want, f"modes and rounds run: {sorted(ran)}"
 
 
+def _synthetic_windows(torch):
+    """Phase 26: B7 against its plain version on seeded synthetic inputs,
+    word for word, under every plan that holds the shapes (window_plans,
+    each launched alone by launch_plan): Ch = 9 and 1 (word entries, stored
+    four at a time and one at a time) and 24 and 4 (16-byte entries too);
+    an env output of partial 16-byte units (23 agents of 121 x 1 words);
+    territory's 40 x 384 image, full_combat's 40 x 896 and 40 x 1024, and
+    144 x 512; E at 1, 7, 133 and 4099 (below, near and above the
+    persistent grid); windows partly outside the image (row0 -1, lane0 at
+    or past the last cell) and lane0 off a 16-byte unit. Prints each
+    launch's plan and its time (CUDA events, the mean of 20 queued launches
+    after one warm-up)."""
+    from mettagrid_tpu_torch.engine.kernels import window_slices as b7
+
+    OH = OW = 11
+    geom = _window_geom(torch, OH, OW)
+    cases = [(E, 24, 40, 384, 9) for E in (1, 7, 133, 4099)]
+    cases += [(133, 24, 40, 896, 24), (4099, 24, 40, 1024, 24), (133, 24, 40, 384, 4), (133, 24, 32, 128, 1),
+              (133, 23, 32, 128, 1), (133, 24, 144, 512, 9), (133, 24, 144, 512, 24)]
+    ran = set()
+    for i, (E, A, HP, WPC, Ch) in enumerate(cases):
+        rng = np.random.default_rng(2600 + i)
+        cells = WPC // Ch
+        img = rng.integers(-(1 << 20), 1 << 20, (E, HP, WPC)).astype(np.int32)
+        r0 = rng.integers(0, HP - OH + 1, (E, A))
+        l0 = rng.integers(0, cells - OW + 1, (E, A)) * Ch
+        edge = rng.random((E, A))
+        r0 = np.where(edge < 0.1, -1, np.where(edge < 0.15, HP - OH + 1, r0))
+        l0 = np.where((edge >= 0.15) & (edge < 0.2), cells * Ch, np.where((edge >= 0.2) & (edge < 0.25),
+                      (cells - OW + 2) * Ch, l0))
+        l0 = np.where((edge >= 0.25) & (edge < 0.3), l0 + 1, l0)  # off a 16-byte unit
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).cuda()  # noqa: E731
+        args = dict(img=t(img), row0=t(r0), lane0=t(l0), geom=geom, Ch=Ch)
+        crossing = int(((r0 < 0) | (r0 + OH > HP) | (l0 < 0) | (l0 + OW * Ch > WPC)).sum())
+        assert crossing > 0 or E < 7, "no window leaves the image"
+        ref = b7.window_slices_ref(**args)
+        got = b7.window_slices(**args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), f"B7 differs from its plain version (case {i}, the wrapper's plan)"
+        wrapper = b7.window_slices.last_launch
+        for plan in b7.window_plans(WPC, A, OH * OW, Ch):
+            got, record = b7.launch_plan(plan, **args)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), f"B7 differs from its plain version (case {i}, {plan})"
+            ms = _time_ms(torch, lambda: b7.launch_plan(plan, **args), 20, queued=True)
+            ran.add((plan.vec, plan.store))
+            chosen = " (the wrapper's)" if (record["vec"], record["store"]) == (wrapper["vec"], wrapper["store"]) else ""
+            print(f"[26] B7 equal to its plain version: E {E}, A {A}, image {HP}x{WPC}, Ch {Ch}; {crossing} windows "
+                  f"leave the image; plan{chosen}: {record['vec']}-word entries, {record['store']}-word stores, grid "
+                  f"{record['grid']} ({record['blocks_per_sm']} blocks per SM allowed), {record['warps']} warps, "
+                  f"{record['smem_bytes']} bytes of shared memory, {record['registers']} registers; {ms:.4f} ms",
+                  flush=True)
+        del args, got, ref
+    assert ran == {(1, 1), (1, 4), (4, 4)}, f"plans run: {sorted(ran)}"
+
+
 def _token_base_10(cfg):
     """Token values in base 10: 9 token slots per cell on the general
     config, 1092 candidates (35 rounds of 32)."""
@@ -1234,7 +1322,8 @@ def main() -> int:
     _launch_limits(torch)
     fc = _full_combat(torch, card)
     b7["full_combat"], b8["full_combat"] = fc["B7"], fc["B8"]
-    print(f"[25] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    _synthetic_windows(torch)
+    print(f"[26] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6a, b6b, b7, b8]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -10,8 +10,8 @@ here a handler runs for a whole batch at once. Mutations that can fail
 This port runs every mutation kind that writes no position but
 recompute_materialized_query, and of the position kinds relocate and swap;
 push_object, spawn_object, raycast_spawn and recompute_materialized_query
-raise NotImplementedError (ROADMAP Queue 1 item 3; inventory stats without
-compact stat storage, item 5). Every function works out of place.
+raise NotImplementedError (ROADMAP Queue 1 item 3). Every function works
+out of place.
 """
 
 from __future__ import annotations
@@ -120,19 +120,19 @@ def emit_inv_stats(program, state, slot, delta_rows, new_rows, mask,
     """Auto-emitted inventory stats on an agent inventory change (reference:
     Agent::on_inventory_change, objects/agent.cpp:100-120): per resource,
     ".gained"/".lost" accumulate the clamped actual deltas, and "death"
-    counts when the "hp" resource is driven to 0 by a negative delta
-    (".amount" is derived from the live inventory at export). Only agent
-    slots emit.
+    counts when the "hp" resource is driven to 0 by a negative delta. With
+    compact stat storage these are auto_stats lanes and ".amount" is derived
+    from the live inventory at export; without it they are agent_stats
+    entries, and ".amount" is set to the new amount where the delta is not 0,
+    with its touched bit (the key then exports even at 0). Only agent slots
+    emit.
 
     delta_rows/new_rows: [B, R] actual deltas and resulting amounts."""
     R = program.num_resources
     if R == 0:
         return state
     if not program.stats_compact:
-        raise NotImplementedError(
-            "inventory stats for configs without compact stat storage are not ported yet "
-            "(ROADMAP Queue 1 item 5)"
-        )
+        return _emit_inv_stats_full(program, state, slot, delta_rows, new_rows, mask, dense_identity, actor_prefix)
     hp = program.hp_rid
     rows = delta_rows
     if hp >= 0:
@@ -154,6 +154,29 @@ def emit_inv_stats(program, state, slot, delta_rows, new_rows, mask,
     if died is not None:
         au[..., 3 * R] += died
     return state._replace(auto_stats=au)
+
+
+def _emit_inv_stats_full(program, state, slot, delta_rows, new_rows, mask, dense_identity, actor_prefix):
+    """emit_inv_stats into agent_stats, for programs without compact stat
+    storage (reference handlers.py:213-233)."""
+    R = program.num_resources
+    d = _agent_rows(program, slot, delta_rows, mask, dense_identity, actor_prefix)
+    if d.shape[1] == 0:
+        return state
+    n = _agent_rows(program, slot, new_rows, mask, dense_identity, actor_prefix)
+    changed = d != 0  # [E, A, R]
+    g0, l0, a0 = (int(ids[0]) for ids in (program.stat_inv_gained, program.stat_inv_lost, program.stat_inv_amount))
+    stats = state.agent_stats.clone()
+    fd = d.to(stats.dtype)
+    stats[..., g0 : g0 + R] += fd.clamp(min=0)
+    stats[..., l0 : l0 + R] += (-fd).clamp(min=0)
+    stats[..., a0 : a0 + R] = torch.where(changed, n.to(stats.dtype), stats[..., a0 : a0 + R])
+    touched = state.agent_stats_touched.clone()
+    touched[..., a0 : a0 + R] |= changed
+    hp = program.hp_rid
+    if hp >= 0:
+        stats[..., program.stat_death] += ((d[..., hp] < 0) & (n[..., hp] == 0)).to(stats.dtype)
+    return state._replace(agent_stats=stats, agent_stats_touched=touched)
 
 
 def entity_inv_update(program, state, slot, rid: int, delta, mask,
@@ -441,7 +464,6 @@ def _resource_transfer(program, state, ctx: Ctx, m, mask):
         want = src_inv if amount < 0 else src_inv.clamp(max=amount)
         state, accepted = entity_inv_update(program, state, dst, rid, want, valid, batch=ctx.inv_batch)
         state, _ = entity_inv_update(program, state, src, rid, -accepted, valid, batch=ctx.inv_batch)
-        # (Without compact stat storage the updates above have raised.)
         dep_ok = valid & agent_slot_ok(src, A) & (accepted > 0)
         add = torch.where((src[..., None] == iota_a) & dep_ok[..., None], accepted[..., None], 0)
         while add.dim() > 2:  # [E, K, A] -> [E, A]: slots are unique per call
@@ -451,10 +473,14 @@ def _resource_transfer(program, state, ctx: Ctx, m, mask):
             row[..., rid] = add
             b = ctx.inv_batch
             b.dep = row if b.dep is None else b.dep + row
-        else:
+        elif program.stats_compact:
             au = state.auto_stats.clone()
             au[..., int(program.stat_inv_deposited[rid]) - AUTO_STAT_BASE] += add
             state = state._replace(auto_stats=au)
+        else:
+            stats = state.agent_stats.clone()
+            stats[..., int(program.stat_inv_deposited[rid])] += add.to(stats.dtype)
+            state = state._replace(agent_stats=stats)
     if m.remove_source_when_empty:
         rm = valid & (gather(state.obj_inv, src).sum(dim=-1) == 0)
         clear = rm & (src >= A) if ctx.lazy_grid else rm

@@ -256,10 +256,12 @@ def persistent_grid(E: int, sm_count: int, blocks_per_sm: int) -> int:
 _OCCUPANCY: dict = {}
 
 
-def occupancy(lib, name: str, plan: TailPlan, device) -> tuple:
+def occupancy(lib, name: str, plan, device) -> tuple:
     """(blocks per SM, registers per thread, SMs) of kernel ``name``'s
-    instance for ``plan`` on ``device`` (a CUDA device), from the library's
-    ``<name>_occupancy``; asked once per plan and device."""
+    instance for ``plan`` (a TailPlan, or B7's WindowPlan, whose words per
+    entry and per store take the place of the rounds and stages) on
+    ``device`` (a CUDA device), from the library's ``<name>_occupancy``;
+    asked once per plan and device."""
     import ctypes
 
     import torch
@@ -273,7 +275,7 @@ def occupancy(lib, name: str, plan: TailPlan, device) -> tuple:
             fn.restype = ctypes.c_int
         res = (ctypes.c_int * 2)()
         with torch.cuda.device(device):
-            err = fn(plan.rounds, plan.stages, plan.warps, plan.smem_bytes, res)
+            err = fn(plan[0], plan[1], plan.warps, plan.smem_bytes, res)
         if err != 0:
             raise RuntimeError(f"{name}: occupancy query failed with cudaError_t {err}")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
