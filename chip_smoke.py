@@ -167,7 +167,32 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
 28. GPU against CPU on network (64 envs, pool 3, max_steps 10, 24 steps)
     and on the flagship with a raycast reward (the pure-move waves with the
     grid's agent layer kept current, as the port's raycast repair sets
-    them), every output and every state field but rng byte-equal.
+    them), every output and every state field but rng byte-equal;
+29. the vector env at full width: MettaGridVectorEnv(make_arena(24,
+    combat=False), num_envs=4096, seed=0), a pool of 8 maps, auto-reset on,
+    fed numpy int32 actions from a seeded np.random.default_rng as a
+    trainer feeds them: its buffers byte-equal to the port's own
+    make_reset/make_step outputs (same program and maps, a generator
+    seeded alike, the same actions) over 8 steps; then, from the counts at
+    0, 32 timed steps with B1 launched once per step and no other kernel;
+    prints the env-steps/s through the env beside the same number of
+    make_step calls on the same program in the same process (actions
+    already on the card, outputs left there), the CUDA-event ms of the
+    device-to-host copy of a step's outputs (queued behind a spin kernel),
+    and the peak device memory;
+30. episode ends at full width: the same env with max_steps 16, so every
+    env ends on step 16: infos["episode"] has 4096 entries, each equal to
+    episode_stats, episode_rewards and length computed on the CPU from
+    state_to_numpy of the state; prints the ms of that step beside the step
+    before it, and of the infos alone;
+31. Simulation(make_arena(24, combat=False), reference_shuffle=True),
+    max_steps 24, on the card and on the CPU, stepped with the same actions
+    through SimulationAgent.set_action until the episode ends:
+    observations, rewards, episode_stats, grid_objects() and the episode
+    signature equal at every step (the MT19937 twin draws alike on both
+    devices); prints the observation route; then the signature tool
+    (python -m mettagrid_tpu_torch.tools.episode_signature --steps=16) in
+    two fresh processes on the card prints one hash.
 
 In phases 14 and 25 B7's library yardstick (``library_ms``) is one
 torch.gather of the image over a precomputed index of every window word,
@@ -1344,6 +1369,153 @@ def _launch_limits(torch):
                   f"windows cross the image edge); {_plan_text(kernel.last_launch)}", flush=True)
 
 
+def _vector_env(torch, card: str):
+    """Phase 29: the vector env at full width against the port's own engine,
+    then timed beside make_step alone."""
+    from mettagrid_tpu_torch.builder import make_arena
+    from mettagrid_tpu_torch.engine import make_reset, make_step
+    from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import obs_tail_static_v2
+    from mettagrid_tpu_torch.envs import MettaGridVectorEnv
+
+    E, n_check, n_timed = 4096, 8, 32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    env = MettaGridVectorEnv(make_arena(24, combat=False), num_envs=E, seed=0)
+    program, A, T = env.program, env.agents_per_env, env.program.num_tokens
+    rng = np.random.default_rng(29)
+    acts = [rng.integers(0, len(env.action_names), E * A).astype(np.int32) for _ in range(n_check + n_timed)]
+    zeros = torch.zeros((E, A), dtype=torch.int32, device="cuda")
+
+    generator = torch.Generator(device="cuda")
+    generator.manual_seed(0)
+    step = make_step(program, env._init, generator=generator)
+    state, out = make_reset(program, env._init, E)(0)
+    obs, *_ = env.reset()
+    assert np.array_equal(obs, out.observations.reshape(E * A, T, 3).cpu().numpy()), "reset observations differ"
+    for i, a in enumerate(acts[:n_check]):
+        obs, rew, term, trunc, _ = env.step(a)
+        state, out = step(state, torch.from_numpy(a).view(E, A).cuda(), zeros, None, out.observations)
+        for name, got, want in (("observations", obs, out.observations), ("rewards", rew, out.rewards),
+                                ("terminals", term, out.terminals), ("truncations", trunc, out.truncations)):
+            assert np.array_equal(got, want.reshape(got.shape).cpu().numpy()), f"step {i}: {name} differ"
+    assert env.buffers.observations is obs
+
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in acts[n_check:]:
+        env.step(a)
+    dt_env = time.perf_counter() - t0
+    launches = {name: k.launches for name, (k, _) in _wrappers().items() if k.launches}
+    assert launches == {"obs_tail_static_v2": n_timed}, f"the vector env launched {launches} for {n_timed} steps"
+    assert obs_tail_static_v2.launches == n_timed
+
+    device_acts = [torch.from_numpy(a).view(E, A).cuda() for a in acts[n_check:]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in device_acts:
+        state, out = step(state, a, zeros, None, out.observations)
+    torch.cuda.synchronize()
+    dt_step = time.perf_counter() - t0
+    copy_ms = _time_ms(torch, env._copy_out, 20, queued=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = sum(b.nbytes for b in (obs, rew, term, trunc))
+    print(f"[29] vector env buffers equal to make_reset/make_step over {n_check} steps at {E} envs x {A} agents "
+          f"(T {T}); B1 launched once per step ({n_timed} in {n_timed} timed steps). Vector env: "
+          f"{E * n_timed / dt_env:.1f} env-steps/s, {dt_env / n_timed * 1e3:.3f} ms/step; make_step alone: "
+          f"{E * n_timed / dt_step:.1f} env-steps/s, {dt_step / n_timed * 1e3:.3f} ms/step (host clock over "
+          f"{n_timed} steps); device-to-host copy {copy_ms:.4f} ms per step for {moved} bytes "
+          f"({moved / copy_ms / 1e6:.2f} GB/s, CUDA events, queued); peak device memory {peak:.2f} GiB on {card}",
+          flush=True)
+
+
+def _episode_ends(torch, card: str):
+    """Phase 30: every env ends on one step; its infos against the stats
+    computed on the CPU."""
+    from mettagrid_tpu_torch.builder import make_arena
+    from mettagrid_tpu_torch.engine.interop import state_from_numpy, state_to_numpy
+    from mettagrid_tpu_torch.envs import MettaGridVectorEnv
+    from mettagrid_tpu_torch.simulator.stats import episode_infos, episode_stats
+
+    E, max_steps = 4096, 16
+    cfg = make_arena(24, combat=False)
+    cfg.game.max_steps = max_steps
+    env = MettaGridVectorEnv(cfg, num_envs=E, seed=0)
+    rng = np.random.default_rng(30)
+    env.reset()
+    times = []
+    for i in range(max_steps):
+        a = rng.integers(0, len(env.action_names), env.num_agents).astype(np.int32)
+        t0 = time.perf_counter()
+        *_, infos = env.step(a)
+        times.append(time.perf_counter() - t0)
+        assert ("episode" in infos) == (i == max_steps - 1), f"step {i + 1}: episode infos {'episode' in infos}"
+    program = env.program
+    host = state_from_numpy(state_to_numpy(env.state), "cpu")
+    episodes = infos["episode"]
+    assert sorted(episodes) == list(range(E)), f"{len(episodes)} episode infos for {E} envs"
+    for e, ep in episodes.items():
+        assert ep["stats"] == episode_stats(program, host, e), f"env {e}: stats differ"
+        assert ep["episode_rewards"] == host.episode_rewards[e].tolist(), f"env {e}: episode rewards differ"
+        assert ep["length"] == int(host.step_count[e]) == max_steps, f"env {e}: length differs"
+    assert any(ep["stats"]["agent"][0] for ep in episodes.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    episode_infos(program, env.state, range(E))
+    infos_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[30] step {max_steps} ended all {E} episodes: {len(episodes)} infos equal to episode_stats, episode "
+          f"rewards and length on the CPU from state_to_numpy; that step {times[-1] * 1e3:.3f} ms against "
+          f"{times[-2] * 1e3:.3f} ms for step {max_steps - 1} (host clock), the infos alone {infos_ms:.3f} ms "
+          f"on {card}", flush=True)
+
+
+def _simulation(torch, card: str):
+    """Phase 31: a Simulation on the card against one on the CPU under the
+    MT19937 twin, then the signature tool in two fresh processes."""
+    from mettagrid_tpu_torch.builder import make_arena
+    from mettagrid_tpu_torch.parity import episode_signature
+    from mettagrid_tpu_torch.simulator import Simulation
+
+    cfg = make_arena(24, combat=False)
+    cfg.game.max_steps = 24
+    gpu = Simulation(cfg, seed=31, reference_shuffle=True)
+    cpu = Simulation(cfg, seed=31, reference_shuffle=True, device="cpu")
+    names = gpu.action_names
+    rng = np.random.default_rng(31)
+    steps = 0
+    while True:
+        assert torch.equal(gpu.last_outputs.observations.cpu(), cpu.last_outputs.observations), f"step {steps}: obs"
+        assert torch.equal(gpu.last_outputs.rewards.cpu(), cpu.last_outputs.rewards), f"step {steps}: rewards"
+        assert gpu.episode_stats == cpu.episode_stats, f"step {steps}: episode_stats"
+        assert gpu.grid_objects() == cpu.grid_objects(), f"step {steps}: grid_objects"
+        sig = episode_signature(gpu.program, gpu.state)
+        assert sig == episode_signature(cpu.program, cpu.state), f"step {steps}: signature"
+        assert [t.value for t in gpu.agent(0).observation.tokens] == [t.value for t in cpu.agent(0).observation.tokens]
+        if gpu.is_done or cpu.is_done:
+            break
+        for a in range(gpu.num_agents):
+            action = names[int(rng.integers(0, len(names)))]
+            gpu.agent(a).set_action(action)
+            cpu.agent(a).set_action(action)
+        gpu.step()
+        cpu.step()
+        steps += 1
+    assert gpu.is_done and cpu.is_done and steps == 24
+    assert int(gpu.state.mt[0, 624]) > 0
+    route = gpu._step_fn.obs_fn.route
+    print(f"[31] Simulation (make_arena(24), reference_shuffle, {route} route) on the card equals the CPU over "
+          f"{steps} steps to the episode end: observations, rewards, episode_stats, grid_objects, signature "
+          f"{sig[:16]}...", flush=True)
+    cmd = [sys.executable, "-m", "mettagrid_tpu_torch.tools.episode_signature", "--steps=16"]
+    hashes = []
+    for _ in range(2):
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=sys.path[0] or ".")
+        assert res.returncode == 0, res.stderr[-2000:]
+        hashes.append(res.stdout.strip())
+    assert len(set(hashes)) == 1 and len(hashes[0]) == 64, hashes
+    print(f"[31] episode_signature --steps=16 in two fresh processes on the card: one hash {hashes[0]}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1433,7 +1605,12 @@ def main() -> int:
     t_net = time.perf_counter()
     b2["network"] = _network(torch, card)
     _network_gpu_vs_cpu(torch)
-    print(f"[28] phases 27-28 took {time.perf_counter() - t_net:.1f} s; all phases passed in "
+    print(f"[28] phases 27-28 took {time.perf_counter() - t_net:.1f} s", flush=True)
+    t_api = time.perf_counter()
+    _vector_env(torch, card)
+    _episode_ends(torch, card)
+    _simulation(torch, card)
+    print(f"[31] phases 29-31 took {time.perf_counter() - t_api:.1f} s; all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6a, b6b, b7, b8]}))

@@ -93,6 +93,49 @@ def test_entry_points_need_a_device_or_cpu(monkeypatch):
     assert state.grid.device.type == "cpu" and out.observations.dtype == torch.uint8
 
 
+def test_api_entry_points_need_a_device_or_cpu(monkeypatch):
+    """The vector env (and the wrappers over it), the Simulation and the
+    signature tool raise without CUDA unless asked for the CPU."""
+    from mettagrid_tpu_torch.builder import make_navigation
+    from mettagrid_tpu_torch.envs import MettaGridPettingZooEnv, MettaGridPufferEnv, MettaGridVectorEnv
+    from mettagrid_tpu_torch.simulator import Simulation, Simulator
+    from mettagrid_tpu_torch.tools.episode_signature import signature
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = make_navigation(2)
+    cfg.game.map_builder.width = cfg.game.map_builder.height = 8
+    makers = {
+        "vector env": lambda **kw: MettaGridVectorEnv(cfg, num_envs=2, **kw),
+        "puffer env": lambda **kw: MettaGridPufferEnv(cfg, num_envs=2, **kw),
+        "pettingzoo env": lambda **kw: MettaGridPettingZooEnv(cfg, **kw),
+        "simulation": lambda **kw: Simulation(cfg, **kw),
+        "simulator": lambda **kw: Simulator().new_simulation(cfg, **kw),
+        "signature": lambda **kw: signature(0, 2, **kw),
+    }
+    for name, make in makers.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+        assert make(device="cpu") is not None, name
+    assert len(signature(0, 2, device="cpu")) == 64
+
+
+def test_api_imports_no_optional_framework():
+    """Importing the env and simulator packages pulls in neither gymnasium
+    nor pettingzoo (the spaces import gymnasium when first read; the
+    PettingZoo and PufferLib adapters are imported when first named)."""
+    code = (
+        "import sys\n"
+        "import mettagrid_tpu_torch.envs, mettagrid_tpu_torch.simulator, mettagrid_tpu_torch.parity\n"
+        "from mettagrid_tpu_torch.envs import MettaGridVectorEnv, GridObsWrapper\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('gymnasium', 'pettingzoo', 'pufferlib')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def test_b1_wrapper_takes_plain_version_on_cpu():
     from mettagrid_tpu_torch.engine import obs
     from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import obs_tail_static_v2, obs_tail_static_v2_ref
