@@ -194,6 +194,36 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
     (python -m mettagrid_tpu_torch.tools.episode_signature --steps=16) in
     two fresh processes on the card prints one hash.
 
+32. the four policy nets (LSTMPolicy at encoder 192 and hidden 128,
+    PufferDefaultNet at 256, StatelessPolicyNet at 128, the reference's
+    TorchRefLSTMNet) on the card against the same nets on the CPU, weights
+    copied by state_dict, on live tokens of the flagship after 8 steps at
+    64 envs x 24 agents: LSTMPolicy through unroll over 4 steps, the
+    recurrent nets over 4 steps, the stateless net once; prints the largest
+    differences against the tolerance (1e-4: float32 sums in another order
+    on each device, and the encoder's scatter_add_ in no fixed order on the
+    card);
+33. the policy on the flagship at full width: the lstm policy
+    (TorchMultiAgentPolicy, encoder 192, hidden 128) acts for all 98,304
+    agents from the engine's carried device observations, its actions going
+    into make_step on the card with no host copy between (pool 64,
+    auto-reset, 8 warm-up and 32 timed steps from the counts at 0: B1
+    launched once per step and no other kernel); prints env-steps/s with
+    the policy in the loop beside make_step alone in the same call (host
+    clock), the policy's forward pass and the encoder's pooling apart
+    (CUDA events), the puffer and stateless nets' forward passes at the
+    same batch, and the peak device memory (below 20 GiB: no [E*A, T, H]
+    intermediate, which alone would take 37.7 GB); then the same policy
+    through MettaGridVectorEnv.step_batch on its numpy buffers (env-steps/s,
+    and the ms to upload a step's observations), and as the env's
+    supervisor (teacher actions in range);
+34. Rollout and run_multi_episode (2 episodes) with the random policy on
+    the card against the CPU, on a map where each agent has a room of its
+    own (so the agent order, drawn by each device's generator, cannot change
+    the outcome): equal steps, rewards and episode stats, and equal decoded
+    replays; then run_episode_local with an lstm spec loaded from a policy
+    data file, on the card: actions in range, finite logits.
+
 In phases 14 and 25 B7's library yardstick (``library_ms``) is one
 torch.gather of the image over a precomputed index of every window word,
 which computes B7's function where every window lies inside the image (the
@@ -1516,6 +1546,221 @@ def _simulation(torch, card: str):
     print(f"[31] episode_signature --steps=16 in two fresh processes on the card: one hash {hashes[0]}", flush=True)
 
 
+def _policy_nets(torch, card: str):
+    """Phase 32: each policy net on the card against the same net on the
+    CPU, on live flagship tokens."""
+    from mettagrid_tpu_torch.policy import LSTMPolicy, PufferDefaultNet, StatelessPolicyNet, unroll
+    from mettagrid_tpu_torch.policy.torch_compat import TorchLSTMState, TorchRefLSTMNet
+    from mettagrid_tpu_torch.tools.bench_run import BenchRun
+
+    tol = 1e-4
+    bench = BenchRun("flagship", seed=32, envs=64, pool=8)
+    state, out = bench.run(*bench.reset(0), 8)
+    steps = []
+    for _ in range(4):
+        steps.append(out.observations.clone())
+        state, out = bench.run(state, out, 1)
+    tokens = torch.stack(steps)  # [4, 64, 24, T, 3]
+    n, obs_size = len(bench.program.action_names), tokens.shape[-2] * 3
+    generator = torch.Generator(device="cuda")
+    generator.manual_seed(32)
+    nets = {
+        "lstm": (LSTMPolicy, (n,)),
+        "puffer": (PufferDefaultNet, (n, obs_size)),
+        "stateless": (StatelessPolicyNet, (n, obs_size)),
+        "torch_ref": (TorchRefLSTMNet, (n, obs_size)),
+    }
+    diffs = {}
+    for name, (cls, args) in nets.items():
+        gpu = cls(*args, device="cuda", generator=generator)
+        cpu = cls(*args, device="cpu")
+        cpu.load_state_dict(gpu.state_dict())
+        outs = {}
+        with torch.no_grad():
+            for dev, net in (("cuda", gpu), ("cpu", cpu)):
+                tok = tokens.to(dev)
+                if name == "lstm":
+                    logits, values, st = unroll(net, tok, net.initial_state(tok.shape[1:3]))
+                    outs[dev] = (logits, values, st.h, st.c)
+                elif name == "stateless":
+                    outs[dev] = net(tok[0])
+                elif name == "puffer":
+                    st = net.initial_state(tok.shape[1:3])
+                    for t in range(4):
+                        logits, values, st = net(tok[t], st)
+                    outs[dev] = (logits, values, st.h, st.c)
+                else:  # the reference's net takes flattened inputs / 255
+                    flat = tok.reshape(4, -1, obs_size).float() / 255.0
+                    z = torch.zeros((flat.shape[1], net.hidden_size), device=dev)
+                    st = TorchLSTMState(h=z, c=z)
+                    for t in range(4):
+                        logits, values, st = net(flat[t], st)
+                    outs[dev] = (logits, values, st.h, st.c)
+        diffs[name] = max(float((g.cpu() - c).abs().max()) for g, c in zip(outs["cuda"], outs["cpu"]))
+        assert all(torch.isfinite(g).all() for g in outs["cuda"]), f"{name}: non-finite output on the card"
+        assert diffs[name] <= tol, f"{name}: the card differs from the CPU by {diffs[name]} > {tol}"
+    print(f"[32] policy nets on the card equal the CPU within {tol} on flagship tokens after 8 steps (64 envs x 24 "
+          f"agents, T {tokens.shape[-2]}), lstm over unroll of 4 steps, puffer and torch_ref over 4 steps, stateless "
+          f"once; largest differences {', '.join(f'{k} {v:.3g}' for k, v in diffs.items())}", flush=True)
+
+
+def _policy_path(torch, card: str):
+    """Phase 33: the lstm policy driving the flagship at full width, timed
+    beside make_step alone; then through the vector env's numpy buffers."""
+    from mettagrid_tpu_torch.builder import make_arena
+    from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import obs_tail_static_v2
+    from mettagrid_tpu_torch.envs import MettaGridVectorEnv
+    from mettagrid_tpu_torch.policy import PolicyEnvInterface, PufferDefaultNet, StatelessPolicyNet
+    from mettagrid_tpu_torch.policy import TorchMultiAgentPolicy
+    from mettagrid_tpu_torch.tools.bench_run import AGENTS, ENVS, POOL, WARMUP, BenchRun
+
+    info = PolicyEnvInterface.from_config(make_arena(AGENTS, combat=False))
+    n_timed = 32
+    bench = BenchRun("flagship", seed=33)
+    policy = TorchMultiAgentPolicy(info, seed=33)
+    acts = torch.zeros((ENVS, AGENTS), dtype=torch.int32, device="cuda")
+    vibes = torch.zeros_like(acts)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def drive(state, out, n):
+        for _ in range(n):
+            policy.step_batch(out.observations, acts)
+            state, out = bench.step(state, acts, vibes, None, out.observations)
+        return state, out
+
+    _zero_counts()
+    state, out = drive(*bench.reset(0), WARMUP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, out = drive(state, out, n_timed)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: k.launches for name, (k, _) in _wrappers().items() if k.launches}
+    want = 1 + WARMUP + n_timed
+    assert launches == {"obs_tail_static_v2": want}, f"the policy path launched {launches} for {want} obs passes"
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert peak < 20, f"peak device memory {peak:.2f} GiB"
+    assert 0 <= int(acts.min()) and int(acts.max()) < len(info.action_names)
+    assert int((state.obj_r[:, :AGENTS] != state.agent_spawn_r).sum()) > 0, "no agent moved"
+    assert policy._lstm_state.h.shape == (ENVS, AGENTS, 128) and torch.isfinite(policy._lstm_state.h).all()
+    state, out, dt_step = bench.timed(state, out, n_timed)
+
+    net, tokens = policy.network(), out.observations
+    T = tokens.shape[-2]
+    lstate = net.initial_state((ENVS, AGENTS))
+    with torch.no_grad():
+        forward_ms = _time_ms(torch, lambda: net(tokens, lstate), 10, queued=True)
+        pool_ms = _time_ms(torch, lambda: net.encoder.pool(tokens.view(-1, T, 3)), 10, queued=True)
+        generator = torch.Generator(device="cuda")
+        generator.manual_seed(33)
+        n = len(info.action_names)
+        puffer = PufferDefaultNet(n, T * 3, device="cuda", generator=generator)
+        pstate = puffer.initial_state((ENVS, AGENTS))
+        puffer_ms = _time_ms(torch, lambda: puffer(tokens, pstate), 10, queued=True)
+        stateless = StatelessPolicyNet(n, T * 3, device="cuda", generator=generator)
+        stateless_ms = _time_ms(torch, lambda: stateless(tokens), 10, queued=True)
+    print(f"[33] lstm policy (encoder 192, hidden 128) driving the flagship, {ENVS} envs x {AGENTS} agents "
+          f"({ENVS * AGENTS} per forward pass), pool {POOL}, auto-reset, on the engine's device observations: "
+          f"{ENVS * n_timed / dt:.1f} env-steps/s, {dt / n_timed * 1e3:.3f} ms/step with the policy; make_step alone "
+          f"{ENVS * n_timed / dt_step:.1f} env-steps/s, {dt_step / n_timed * 1e3:.3f} ms/step (host clock over "
+          f"{n_timed} steps); B1 launched {launches['obs_tail_static_v2']} times for {want} obs passes; forward pass "
+          f"{forward_ms:.3f} ms, of it the encoder's pooling {pool_ms:.3f} ms; puffer (256) {puffer_ms:.3f} ms, "
+          f"stateless (128) {stateless_ms:.3f} ms (CUDA events, queued); peak device memory {peak:.2f} GiB on {card}",
+          flush=True)
+    del puffer, stateless, pstate
+
+    env = MettaGridVectorEnv(make_arena(AGENTS, combat=False), num_envs=ENVS, seed=0)
+    numpy_policy = TorchMultiAgentPolicy(info, seed=34)
+    env.reset()
+    buffers = env.buffers
+    for _ in range(4):
+        numpy_policy.step_batch(buffers.observations, buffers.actions)
+        env.step()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        numpy_policy.step_batch(buffers.observations, buffers.actions)
+        env.step()
+    dt_env = time.perf_counter() - t0
+    assert 0 <= buffers.actions.min() and buffers.actions.max() < len(info.action_names)
+    upload_ms = _time_ms(torch, lambda: torch.as_tensor(buffers.observations, device="cuda"), 10)
+    env.set_supervisor(TorchMultiAgentPolicy(info, seed=35))
+    rng = np.random.default_rng(33)
+    for _ in range(2):
+        env.step(rng.integers(0, len(info.action_names), env.num_agents).astype(np.int32))
+    teacher = buffers.teacher_actions
+    assert 0 <= teacher.min() and teacher.max() < len(info.action_names) and len(np.unique(teacher)) > 1
+    print(f"[33] the same policy through MettaGridVectorEnv.step_batch on its numpy buffers: "
+          f"{ENVS * 16 / dt_env:.1f} env-steps/s, {dt_env / 16 * 1e3:.3f} ms/step (host clock over 16 steps); "
+          f"uploading a step's observations ({buffers.observations.nbytes} bytes) {upload_ms:.4f} ms (CUDA events); "
+          f"as the env's supervisor: teacher actions in range", flush=True)
+
+
+def _rooms_config(max_steps: int):
+    """Three agents, each in a room of its own."""
+    from mettagrid_tpu_torch.config.game_config import GameConfig, MettaGridConfig, WallConfig
+    from mettagrid_tpu_torch.maps.ascii import AsciiMapBuilder
+
+    rooms = ["##########", "#@.#.@#..#", "#..#..#.@#", "##########"]
+    return MettaGridConfig(game=GameConfig(num_agents=3, max_steps=max_steps, objects={"wall": WallConfig()},
+                                           map_builder=AsciiMapBuilder.Config(map_data=rooms)))
+
+
+def _policy_rollouts(torch, card: str):
+    """Phase 34: Rollout, run_multi_episode and replays on the card against
+    the CPU; run_episode_local with an lstm policy data file on the card."""
+    import tempfile
+
+    from mettagrid_tpu_torch.policy import PolicyEnvInterface, PolicySpec, RandomMultiAgentPolicy
+    from mettagrid_tpu_torch.policy import TorchMultiAgentPolicy, load_policy
+    from mettagrid_tpu_torch.runner import EpisodeRequest, run_episode_local
+    from mettagrid_tpu_torch.simulator import Simulation, SimulatorEventHandler
+    from mettagrid_tpu_torch.simulator.multi_episode import run_multi_episode
+    from mettagrid_tpu_torch.simulator.replay_writer import InMemoryReplayWriter
+    from mettagrid_tpu_torch.simulator.rollout import Rollout
+
+    cfg = _rooms_config(24)
+    info = PolicyEnvInterface.from_config(cfg)
+    results, replays = {}, {}
+    for dev in ("cuda", "cpu"):
+        writer = InMemoryReplayWriter()
+        results[dev] = Rollout(cfg, RandomMultiAgentPolicy(info, seed=34), seed=34, event_handlers=[writer],
+                               device=dev).run()
+        replays[dev] = json.loads(json.dumps(writer.get_completed_replays()[0].finalize()))
+    gpu, cpu = results["cuda"], results["cpu"]
+    assert gpu.steps == cpu.steps == 24
+    assert np.array_equal(gpu.episode_rewards, cpu.episode_rewards)
+    assert gpu.episode_stats == cpu.episode_stats
+    assert replays["cuda"] == replays["cpu"], "the replays differ"
+    multi = [run_multi_episode(cfg, [(RandomMultiAgentPolicy(info, seed=35), [0, 1, 2])], 2, seed=35, device=dev)
+             for dev in ("cuda", "cpu")]
+    assert multi[0].model_dump() == multi[1].model_dump()
+
+    actions = []
+
+    class Record(SimulatorEventHandler):
+        def on_step(self) -> None:
+            actions.append(self._simulation.state.agent_last_action[0].tolist())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/lstm.pkl"
+        TorchMultiAgentPolicy(info, seed=36).save_policy_data(path)
+        spec = PolicySpec(class_path="lstm", policy_data_path=path)
+        result = run_episode_local(EpisodeRequest(config=cfg, policy_specs=[spec], seed=36),
+                                   event_handlers=[Record()])
+        loaded = load_policy(spec, info, device="cuda")
+    assert result.steps == len(actions) == 24 and result.error is None
+    assert all(0 <= a < len(info.action_names) for step in actions for a in step)
+    tokens = Simulation(cfg, seed=36).last_outputs.observations[0]  # [3, T, 3] on the card
+    with torch.no_grad():
+        logits, values, _ = loaded.network()(tokens, loaded.network().initial_state((3,)))
+    assert torch.isfinite(logits).all() and torch.isfinite(values).all()
+    print(f"[34] Rollout (24 steps, 3 agents in rooms of their own) and run_multi_episode (2 episodes) with the "
+          f"random policy on the card equal the CPU: steps, rewards, episode stats, decoded replays; "
+          f"run_episode_local with an lstm spec from a policy data file on the card: {len(actions)} steps, actions "
+          f"in range, finite logits", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1610,7 +1855,12 @@ def main() -> int:
     _vector_env(torch, card)
     _episode_ends(torch, card)
     _simulation(torch, card)
-    print(f"[31] phases 29-31 took {time.perf_counter() - t_api:.1f} s; all phases passed in "
+    print(f"[31] phases 29-31 took {time.perf_counter() - t_api:.1f} s", flush=True)
+    t_policy = time.perf_counter()
+    _policy_nets(torch, card)
+    _policy_path(torch, card)
+    _policy_rollouts(torch, card)
+    print(f"[34] phases 32-34 took {time.perf_counter() - t_policy:.1f} s; all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6a, b6b, b7, b8]}))

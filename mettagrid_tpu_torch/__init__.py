@@ -5,6 +5,8 @@ compiler (``config``, ``maps``, ``builder`` and the numpy modules of
 ``engine``) is a copy of the reference's; the device engine (state, reset,
 step, observations) is rewritten in PyTorch, and each Pallas TPU kernel on
 its path is a CUDA kernel written by hand for Hopper (``engine/csrc``).
+The policies (``policy``) are ``torch.nn`` twins of the reference's flax
+nets, and their parameters move to and from flax trees.
 
 The package imports torch, numpy and pydantic, never jax and nothing of
 ``mettagrid_tpu``. Entry points run on the CUDA device unless the caller

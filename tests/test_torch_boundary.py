@@ -1,9 +1,10 @@
 """The port's import boundary and device rules.
 
-The port imports neither jax nor anything of the JAX package; its entry
-points refuse to run without a CUDA device unless asked for the CPU; on CPU
-tensors the B1, B2, B6a and B6b wrappers take their plain versions and launch
-nothing; the reference-RNG step refuses draws fed from outside.
+The port imports neither jax, flax, optax nor anything of the JAX package,
+and the import-graph scan reaches every subpackage; its entry points refuse
+to run without a CUDA device unless asked for the CPU; on CPU tensors the
+B1, B2, B6a and B6b wrappers take their plain versions and launch nothing;
+the reference-RNG step refuses draws fed from outside.
 """
 
 import ast
@@ -19,8 +20,13 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "mettagrid_tpu_torch"
 
 
+FORBIDDEN = ("jax", "flax", "optax", "mettagrid_tpu")
+# Subpackages the import-graph scan must reach.
+SUBPACKAGES = ("engine", "envs", "simulator", "parity", "policy", "runner", "util", "tools")
+
+
 def _forbidden(name: str) -> bool:
-    return name == "jax" or name.startswith("jax.") or name == "mettagrid_tpu" or name.startswith("mettagrid_tpu.")
+    return name.split(".")[0] in FORBIDDEN
 
 
 def test_import_pulls_in_no_jax():
@@ -29,9 +35,10 @@ def test_import_pulls_in_no_jax():
         "import mettagrid_tpu_torch, mettagrid_tpu_torch.engine\n"
         "for m in pkgutil.walk_packages(mettagrid_tpu_torch.__path__, 'mettagrid_tpu_torch.'):\n"
         "    __import__(m.name)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'mettagrid_tpu' or m.startswith('mettagrid_tpu.')]\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
+        f"missing = [p for p in {SUBPACKAGES!r} if 'mettagrid_tpu_torch.' + p not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print('ok', len([m for m in sys.modules if m.startswith('mettagrid_tpu_torch')]))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
@@ -117,6 +124,54 @@ def test_api_entry_points_need_a_device_or_cpu(monkeypatch):
             make()
         assert make(device="cpu") is not None, name
     assert len(signature(0, 2, device="cpu")) == 64
+
+
+def test_policy_entry_points_need_a_device_or_cpu(monkeypatch, tmp_path):
+    """The net policies (lstm, puffer, stateless, torch_lstm), Rollout,
+    single_episode_rollout, run_multi_episode, run_episode_local and
+    run_episode_isolated raise without CUDA unless asked for the CPU; the
+    random and noop policies are numpy and take no device."""
+    from mettagrid_tpu_torch.builder import make_navigation
+    from mettagrid_tpu_torch.policy import (
+        NoopMultiAgentPolicy,
+        PolicySpec,
+        PufferDefaultPolicy,
+        RandomMultiAgentPolicy,
+        StatelessPolicy,
+        TorchMultiAgentPolicy,
+    )
+    from mettagrid_tpu_torch.policy.torch_compat import TorchCompatLSTMPolicy, TorchRefLSTMNet
+    from mettagrid_tpu_torch.runner import EpisodeRequest, run_episode_isolated, run_episode_local
+    from mettagrid_tpu_torch.simulator.multi_episode import run_multi_episode
+    from mettagrid_tpu_torch.simulator.rollout import Rollout, single_episode_rollout
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = make_navigation(2)
+    cfg.game.map_builder.width = cfg.game.map_builder.height = 8
+    cfg.game.max_steps = 2
+    state_dict = TorchRefLSTMNet(5, 30, 8, device="cpu").state_dict()
+    random = RandomMultiAgentPolicy(num_actions=5)
+    request = EpisodeRequest(config=cfg, policy_specs=[PolicySpec(class_path="random")])
+    makers = {
+        "lstm": lambda **kw: TorchMultiAgentPolicy(**kw),
+        "puffer": lambda **kw: PufferDefaultPolicy(**kw),
+        "stateless": lambda **kw: StatelessPolicy(**kw),
+        "torch_lstm": lambda **kw: TorchCompatLSTMPolicy(5, 30, state_dict=state_dict, hidden_size=8, **kw),
+        "rollout": lambda **kw: Rollout(cfg, random, **kw),
+        "single_episode_rollout": lambda **kw: single_episode_rollout(cfg, random, **kw),
+        "run_multi_episode": lambda **kw: run_multi_episode(cfg, [(random, [0, 1])], 1, **kw),
+        "run_episode_local": lambda **kw: run_episode_local(request, **kw),
+    }
+    for name, make in makers.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+        assert make(device="cpu") is not None, name
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_episode_isolated(request)
+    acts = np.ones(2, np.int32)
+    for policy in (random, NoopMultiAgentPolicy()):
+        policy.step_batch(np.zeros((2, 4, 3), np.uint8), acts)
+        assert 0 <= acts.min() and acts.max() < 5
 
 
 def test_api_imports_no_optional_framework():
