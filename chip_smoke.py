@@ -222,7 +222,34 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
     own (so the agent order, drawn by each device's generator, cannot change
     the outcome): equal steps, rewards and episode stats, and equal decoded
     replays; then run_episode_local with an lstm spec loaded from a policy
-    data file, on the card: actions in range, finite logits.
+    data file, on the card: actions in range, finite logits;
+35. the trainer (parallel.make_train_step) on the card against the CPU: the
+    training demo's configuration (navigation, 8 envs x 2 agents, widths
+    32), one set of weights on both by state_dict, 5 steps with the actions
+    and agent orders fed from numpy under SGD(lr=0.1): env state and
+    observations byte-equal, loss, entropy and reward mean within 1e-4
+    relative, parameters and LSTM state within 1e-5; then one update of the
+    port's Adam from the card's gradients copied to the CPU, within 1e-6
+    (Adam is not compared end to end: its first step is close to a sign
+    function, and a gradient near 0 may change sign with the order of the
+    card's scatter_add_);
+36. the trainer at full width: the flagship (4096 x 24, pool 64,
+    auto-reset) with LSTMPolicy at encoder 192 and hidden 128 and adam(1e-3),
+    8 warm-up and 16 timed train steps from the counts at 0: B1 launched once
+    per env step and no other kernel, finite losses, Adam's first update at
+    most 1e-3 on every parameter, the LSTM cell's bias_ih still 0, agents
+    moved, peak device memory below 20 GiB; prints ms per train step and
+    env-steps/s beside make_step alone (host clock), the forward pass with
+    grad, the draw and the env step, the loss and its backward pass and
+    optimizer.step() apart (CUDA events that train_step's mark hook records
+    as the trainer issues them, over 8 more train steps) and the forward
+    pass queued; then perf.run_performance on the flagship's make_step with
+    max_cv=None (the host clock spreads too far for the 0.2 gate) and phase
+    timing on, printing env-steps/s, the CV and the phase dict (device
+    time: the step's kernels and copies, and each phase's);
+37. python -m mettagrid_tpu_torch.demos.demo_train in a fresh process on
+    the card (exit 0, its printed line, finite losses) and the PettingZoo
+    demo on the card.
 
 In phases 14 and 25 B7's library yardstick (``library_ms``) is one
 torch.gather of the image over a precomputed index of every window word,
@@ -1761,6 +1788,225 @@ def _policy_rollouts(torch, card: str):
           f"in range, finite logits", flush=True)
 
 
+def _trainer_gpu_vs_cpu(torch, card: str):
+    """Phase 35: the trainer on the card against the CPU, from one set of
+    weights, with the actions and agent orders fed from numpy, under SGD;
+    then the port's Adam alone on gradients copied from the card."""
+    from mettagrid_tpu_torch.builder import make_navigation
+    from mettagrid_tpu_torch.engine import build_env_init, compile_program, make_reset, make_step
+    from mettagrid_tpu_torch.engine.interop import state_to_numpy
+    from mettagrid_tpu_torch.parallel import TrainState, adam, make_train_step, trainable_parameters
+    from mettagrid_tpu_torch.parallel.train import a2c_loss
+    from mettagrid_tpu_torch.policy import LSTMPolicy
+
+    E, A, n_steps = 8, 2, 5
+    cfg = make_navigation(A)
+    cfg.game.max_steps = 32
+    cfg.game.map_builder.width = cfg.game.map_builder.height = 10
+    program = compile_program(cfg)
+    init = build_env_init(program, [cfg.game.map_builder.create().build_for_num_agents(A)])
+    n = len(program.action_names)
+    rng = np.random.default_rng(35)
+    acts = [rng.integers(0, n, (E, A)).astype(np.int32) for _ in range(n_steps)]
+    perms = [np.stack([rng.permutation(A) for _ in range(E)]).astype(np.int32) for _ in range(n_steps)]
+    generator = torch.Generator(device="cuda")
+    generator.manual_seed(35)
+    start = LSTMPolicy(n, 32, 32, device="cuda", generator=generator).state_dict()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        policy = LSTMPolicy(n, 32, 32, device=dev)
+        policy.load_state_dict(start)
+        step = make_step(program, init, auto_reset=True, external_perm=True, device=dev)
+        perm = {}
+
+        def step_fn(state, actions, vibes, obs_buf=None):
+            return step(state, actions, vibes, perm["now"], obs_buf)
+
+        optimizer = torch.optim.SGD(trainable_parameters(policy), lr=0.1)
+        train_step = make_train_step(program, step_fn, policy, optimizer)
+        state, out = make_reset(program, init, E, device=dev)(0)
+        ts = TrainState(state, out.observations, policy.initial_state((E, A)), torch.Generator(device=dev))
+        trace = []
+        for i in range(n_steps):
+            perm["now"] = torch.from_numpy(perms[i]).to(dev)
+            ts, metrics = train_step(ts, actions=torch.from_numpy(acts[i]).to(dev))
+            trace.append(({k: float(v) for k, v in metrics.items()}, state_to_numpy(ts.env_state),
+                          ts.obs.cpu().numpy().copy(), [x.detach().cpu().clone() for x in ts.lstm_state],
+                          {k: v.detach().cpu().clone() for k, v in policy.state_dict().items()}))
+        runs[dev] = trace
+    worst = {"metrics": 0.0, "params": 0.0, "lstm": 0.0}
+    for i, (g, c) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        for name, value in g[0].items():
+            assert np.isfinite(value), f"step {i}: {name} is not finite on the card"
+            rel = abs(value - c[0][name]) / max(abs(c[0][name]), 1e-30)
+            assert abs(value - c[0][name]) <= 1e-4 * abs(c[0][name]), f"step {i}: {name} {value} vs {c[0][name]}"
+            worst["metrics"] = max(worst["metrics"], rel)
+        for name in g[1]:
+            if name != "rng":
+                assert np.array_equal(g[1][name], c[1][name]), f"step {i}: state {name} differs between GPU and CPU"
+        assert np.array_equal(g[2], c[2]), f"step {i}: the observations differ between GPU and CPU"
+        worst["lstm"] = max(worst["lstm"], *(float((x - y).abs().max()) for x, y in zip(g[3], c[3])))
+        worst["params"] = max(worst["params"], *(float((g[4][k] - c[4][k]).abs().max()) for k in g[4]))
+    assert worst["lstm"] <= 1e-5 and worst["params"] <= 1e-5, worst
+    assert runs["cuda"][-1][4]["cell.bias_ih"].abs().max() == 0
+
+    # The port's Adam alone: one update from the card's gradients, on both.
+    policies = {dev: LSTMPolicy(n, 32, 32, device=dev) for dev in ("cuda", "cpu")}
+    optimizers = {}
+    for dev, policy in policies.items():
+        policy.load_state_dict(start)
+        policy.cell.bias_ih.requires_grad_(False)
+        optimizers[dev] = adam(policy, 1e-3)
+    state, out = make_reset(program, init, E, device="cuda")(0)
+    logits, values, _ = policies["cuda"](out.observations, policies["cuda"].initial_state((E, A)))
+    rewards = torch.from_numpy(rng.standard_normal((E, A)).astype(np.float32)).cuda()
+    loss, _ = a2c_loss(logits, values, torch.from_numpy(acts[0]).cuda(), rewards, 0.5, 0.01)
+    loss.backward()
+    for p_gpu, p_cpu in zip(trainable_parameters(policies["cuda"]), trainable_parameters(policies["cpu"])):
+        p_cpu.grad = p_gpu.grad.cpu()
+    for opt in optimizers.values():
+        opt.step()
+    adam_err = max(float((p_gpu.detach().cpu() - p_cpu.detach()).abs().max())
+                   for p_gpu, p_cpu in zip(policies["cuda"].parameters(), policies["cpu"].parameters()))
+    assert adam_err <= 1e-6, f"the port's Adam differs between GPU and CPU by {adam_err}"
+    print(f"[35] trainer on the card equals the CPU over {n_steps} SGD steps of the demo's configuration ({E} envs x "
+          f"{A} agents, widths 32, actions and agent orders from numpy): env state and observations byte-equal, "
+          f"metrics within {worst['metrics']:.3g} relative (bound 1e-4), parameters within {worst['params']:.3g} and "
+          f"LSTM state within {worst['lstm']:.3g} (bound 1e-5); one Adam update from the card's gradients equal within "
+          f"{adam_err:.3g} (bound 1e-6) on {card}", flush=True)
+
+
+def _trainer_path(torch, card: str):
+    """Phase 36: make_train_step with adam over LSTMPolicy at its default
+    widths on the flagship at full width, timed beside make_step alone, its
+    parts apart through train_step's mark hook; then run_performance with
+    phase timing on the flagship's make_step."""
+    from mettagrid_tpu_torch.engine import make_reset, make_step
+    from mettagrid_tpu_torch.parallel import TrainState, adam, make_train_step
+    from mettagrid_tpu_torch.perf import run_performance
+    from mettagrid_tpu_torch.policy import LSTMPolicy
+    from mettagrid_tpu_torch.policy.policy import generators
+    from mettagrid_tpu_torch.profiling.phase_timing import span_times
+    from mettagrid_tpu_torch.tools.bench_run import AGENTS, ENVS, POOL, WARMUP, BenchRun, build_pool, make_cfg
+
+    n_timed, lr = 16, 1e-3
+    bench = BenchRun("flagship", seed=36, envs=ENVS, pool=POOL)
+    n = len(bench.program.action_names)
+    init_gen, action_gen = generators(36, "cuda")
+    policy = LSTMPolicy(n, device="cuda", generator=init_gen)
+    optimizer = adam(policy, lr)
+
+    def step_fn(state, actions, vibes, obs_buf=None):
+        return bench.step(state, actions, vibes, None, obs_buf)
+
+    train_step = make_train_step(bench.program, step_fn, policy, optimizer)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    state, out = bench.reset(0)
+    ts = TrainState(state, out.observations, policy.initial_state((ENVS, AGENTS)), action_gen)
+    before = [p.detach().clone() for p in policy.parameters()]
+    ts, metrics = train_step(ts)
+    first_move = max(float((p.detach() - b).abs().max()) for p, b in zip(policy.parameters(), before))
+    assert first_move <= lr * (1 + 1e-4), f"Adam's first update moved a parameter by {first_move} > {lr}"
+    losses = [metrics["loss"]]
+    for _ in range(WARMUP - 1):
+        ts, metrics = train_step(ts)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        ts, metrics = train_step(ts)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: k.launches for name, (k, _) in _wrappers().items() if k.launches}
+    want = 1 + WARMUP + n_timed
+    assert launches == {"obs_tail_static_v2": want}, f"the trainer launched {launches} for {want} obs passes"
+    assert bool(torch.isfinite(torch.stack(losses)).all()), "a non-finite loss"
+    assert not bool(policy.cell.bias_ih.any()), "the LSTM cell's bias_ih moved"
+    assert int((ts.env_state.obj_r[:, :AGENTS] != ts.env_state.agent_spawn_r).sum()) > 0, "no agent moved"
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert peak < 20, f"peak device memory {peak:.2f} GiB"
+    _, _, dt_step = bench.timed(*bench.run(*bench.reset(1), WARMUP), n_timed)
+
+    # The parts apart, by CUDA events that train_step's mark hook records
+    # between them as the trainer issues them, over further train steps.
+    reps, parts = 8, ("forward", "env", "backward", "optimizer")
+    marks = []
+    for _ in range(reps + 1):
+        ev = {"start": torch.cuda.Event(enable_timing=True)}
+        ev["start"].record()
+
+        def mark(part, ev=ev):
+            ev[part] = torch.cuda.Event(enable_timing=True)
+            ev[part].record()
+
+        ts, metrics = train_step(ts, mark=mark)
+        losses.append(metrics["loss"])
+        marks.append(ev)
+    torch.cuda.synchronize()
+    part_ms = {b: sum(ev[a].elapsed_time(ev[b]) for ev in marks[1:]) / reps
+               for a, b in zip(("start",) + parts, parts)}
+    tokens, lstate = ts.obs, ts.lstm_state
+    forward_ms = _time_ms(torch, lambda: policy(tokens, lstate), 10, queued=True)
+    # The backward pass's matmul operations from the shapes: each weight's
+    # gradient, and the input's where it needs one (not the histogram's, nor
+    # the detached carried h's).
+    enc = policy.encoder
+    N, He, Hh = ENVS * AGENTS, enc.hidden_size, policy.hidden_size
+    bins = enc.feature_embed.num_embeddings + 2 * enc.pos_x_embed.num_embeddings
+    backward_ops = 2 * N * (bins * He + 2 * He * He + 2 * He * Hh + 3 * 4 * Hh * Hh + 2 * Hh * (n + 1))
+    # The device's busy time over 4 traced train steps.
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            ts, metrics = train_step(ts)
+        torch.cuda.synchronize()
+    busy_ms = sum(ms for ms, _ in span_times(prof, 4)[1].values())
+    print(f"[36] trainer (make_train_step, adam {lr}, LSTMPolicy encoder 192, hidden 128) on the flagship, {ENVS} envs x "
+          f"{AGENTS} agents, pool {POOL}, auto-reset: {ENVS * n_timed / dt:.1f} env-steps/s, "
+          f"{dt / n_timed * 1e3:.3f} ms per train step; make_step alone {ENVS * n_timed / dt_step:.1f} env-steps/s, "
+          f"{dt_step / n_timed * 1e3:.3f} ms/step (host clock over {n_timed} steps); B1 launched "
+          f"{launches['obs_tail_static_v2']} times for {want} env steps; forward pass with grad "
+          f"{part_ms['forward']:.3f} ms, the draw and the env step {part_ms['env']:.3f} ms, the loss and its backward "
+          f"pass {part_ms['backward']:.3f} ms, optimizer.step {part_ms['optimizer']:.3f} ms (CUDA events between the "
+          f"parts of train_step as issued, mean of {reps} train steps); "
+          f"forward pass with grad queued {forward_ms:.3f} ms; the backward pass's matmuls {backward_ops / 1e9:.2f} "
+          f"GFLOP, bound {backward_ops / SCALAR_OPS_PER_S * 1e3:.3f} ms; device busy {busy_ms:.3f} ms per train step "
+          f"(torch.profiler, 4 steps), idle share {max(0.0, 1 - busy_ms / (dt / n_timed * 1e3)):.3f} of the untraced "
+          f"step; first update moved a parameter by at most "
+          f"{first_move:.6g}; losses finite, first {float(losses[0]):.5f}, last {float(losses[-1]):.5f}; peak device "
+          f"memory {peak:.2f} GiB on {card}", flush=True)
+
+    program, init = build_pool(make_cfg("flagship"), POOL)
+    result = run_performance(make_step(program, init, auto_reset=True, device="cuda"),
+                             make_reset(program, init, ENVS, device="cuda"), num_envs=ENVS, num_agents=AGENTS,
+                             n_actions=len(program.action_names), label="flagship", max_cv=None,
+                             phase_timing=(program, init))
+    phases = {k: round(v * 1e3, 4) for k, v in result.extra["phase_timing_s"].items()}
+    print(f"[36] perf.run_performance on the flagship's make_step ({result.rounds} rounds of {result.iters_per_round} "
+          f"steps): {result.env_steps_per_s:.1f} env-steps/s, CV {result.cv:.4f}, rounds "
+          f"{[round(x, 1) for x in result.round_sps]}; measure_step_phases ms per step (device time: step, all its "
+          f"kernels and copies; phases, their spans' kernels) {phases} on {card}", flush=True)
+
+
+def _trainer_demos(torch, card: str):
+    """Phase 37: the training demo in a fresh process on the card, and the
+    PettingZoo demo on the card."""
+    from mettagrid_tpu_torch.demos.demo_pettingzoo import run
+
+    cmd = [sys.executable, "-m", "mettagrid_tpu_torch.demos.demo_train"]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=sys.path[0] or ".")
+    assert res.returncode == 0, res.stderr[-2000:]
+    line = res.stdout.strip().splitlines()[-1]
+    m = re.fullmatch(r"trained 20 steps; first loss (\S+), last loss (\S+)", line)
+    assert m and all(np.isfinite(float(x)) for x in m.groups()), line
+    totals = run()
+    assert len(totals) == 2 and all(np.isfinite(totals))
+    print(f"[37] python -m mettagrid_tpu_torch.demos.demo_train on the card in a fresh process: {line!r}; the "
+          f"PettingZoo demo on the card: {len(totals)} episodes, totals {totals} on {card}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1860,7 +2106,12 @@ def main() -> int:
     _policy_nets(torch, card)
     _policy_path(torch, card)
     _policy_rollouts(torch, card)
-    print(f"[34] phases 32-34 took {time.perf_counter() - t_policy:.1f} s; all phases passed in "
+    print(f"[34] phases 32-34 took {time.perf_counter() - t_policy:.1f} s", flush=True)
+    t_train = time.perf_counter()
+    _trainer_gpu_vs_cpu(torch, card)
+    _trainer_path(torch, card)
+    _trainer_demos(torch, card)
+    print(f"[37] phases 35-37 took {time.perf_counter() - t_train:.1f} s; all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6a, b6b, b7, b8]}))

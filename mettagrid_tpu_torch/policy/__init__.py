@@ -12,7 +12,12 @@ from mettagrid_tpu_torch.policy.loader import (
     initialize_or_load_policy,
     resolve_policy_class_path,
 )
-from mettagrid_tpu_torch.policy.interop import params_from_flax, params_to_flax
+from mettagrid_tpu_torch.policy.interop import (
+    opt_state_from_optax,
+    opt_state_to_optax,
+    params_from_flax,
+    params_to_flax,
+)
 from mettagrid_tpu_torch.policy.lstm import LSTMPolicy, LSTMState, init_policy, unroll
 from mettagrid_tpu_torch.policy.policy import (
     POLICY_REGISTRY,
@@ -68,6 +73,8 @@ __all__ = [
     "load_policy_manifest",
     "load_policy_spec_from_path",
     "localize_policy_uri",
+    "opt_state_from_optax",
+    "opt_state_to_optax",
     "params_from_flax",
     "params_to_flax",
     "prepare_policy_spec",

@@ -19,12 +19,19 @@ packages. The mapping, per layer:
 A submodule takes its flax name unless its class lists another in
 ``FLAX_NAMES`` (flax name -> attribute); a net whose tree has another shape
 (policy/torch_compat.py) converts it in its own ``state_dict_from_flax``.
+
+Adam's state crosses the same way (``opt_state_from_optax``,
+``opt_state_to_optax``): optax's ``(ScaleByAdamState(count, mu, nu),
+EmptyState())`` holds ``mu`` and ``nu`` as trees shaped like the
+parameters, which map per layer as above onto torch Adam's per-parameter
+``exp_avg`` and ``exp_avg_sq``, and ``count`` onto each one's ``step``.
+``bias_ih`` has no state: it does not train (parallel/train.py).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -61,18 +68,22 @@ def _convert(module: nn.Module, tree: dict, prefix: str, out: dict) -> None:
             _convert(child, sub, p, out)
 
 
+def _state_dict(net: nn.Module, tree: dict) -> dict[str, torch.Tensor]:
+    """``net``'s state dict read from a tree shaped like its flax parameters."""
+    tree = tree.get("params", tree)
+    if hasattr(net, "state_dict_from_flax"):
+        return net.state_dict_from_flax(tree)
+    state: dict[str, torch.Tensor] = {}
+    _convert(net, tree, "", state)
+    return state
+
+
 def params_from_flax(net: nn.Module, tree: dict) -> nn.Module:
     """Load a flax parameter tree (``{"params": {...}}`` or its inside, as
     nested dicts of numpy arrays) into ``net``; every parameter must be
     covered. Returns ``net``."""
-    tree = tree.get("params", tree)
-    if hasattr(net, "state_dict_from_flax"):
-        state = net.state_dict_from_flax(tree)
-    else:
-        state = {}
-        _convert(net, tree, "", state)
     with torch.no_grad():
-        net.load_state_dict(state, strict=True)
+        net.load_state_dict(_state_dict(net, tree), strict=True)
     return net
 
 
@@ -80,35 +91,105 @@ def _numpy(x: torch.Tensor) -> np.ndarray:
     return x.detach().to("cpu", torch.float32).numpy().copy()
 
 
-def _to_flax(module: nn.Module) -> dict:
+def _to_flax(module: nn.Module, value: Callable[[torch.Tensor], torch.Tensor]) -> dict:
+    """The flax tree of ``value(p)`` for each parameter ``p`` of ``module``."""
     inverse = {v: k for k, v in getattr(module, "FLAX_NAMES", {}).items()}
     tree: dict[str, Any] = {}
     for name, child in module.named_children():
         key = inverse.get(name, name)
         if isinstance(child, nn.Embedding):
-            tree[key] = {"embedding": _numpy(child.weight)}
+            tree[key] = {"embedding": _numpy(value(child.weight))}
         elif isinstance(child, nn.Linear):
-            tree[key] = {"kernel": _numpy(child.weight.T)}
+            tree[key] = {"kernel": _numpy(value(child.weight).T)}
             if child.bias is not None:
-                tree[key]["bias"] = _numpy(child.bias)
+                tree[key]["bias"] = _numpy(value(child.bias))
         elif isinstance(child, nn.LayerNorm):
-            tree[key] = {"scale": _numpy(child.weight), "bias": _numpy(child.bias)}
+            tree[key] = {"scale": _numpy(value(child.weight)), "bias": _numpy(value(child.bias))}
         elif isinstance(child, nn.LSTMCell):
-            w_ih, w_hh = child.weight_ih.chunk(4), child.weight_hh.chunk(4)
-            b = (child.bias_ih + child.bias_hh).chunk(4)
+            w_ih, w_hh = value(child.weight_ih).chunk(4), value(child.weight_hh).chunk(4)
+            b = (value(child.bias_ih) + value(child.bias_hh)).chunk(4)
             tree[key] = {}
             for g, wi, wh, bh in zip(GATES, w_ih, w_hh, b):
                 tree[key]["i" + g] = {"kernel": _numpy(wi.T)}
                 tree[key]["h" + g] = {"kernel": _numpy(wh.T), "bias": _numpy(bh)}
         elif any(True for _ in child.parameters()):
-            tree[key] = _to_flax(child)
+            tree[key] = _to_flax(child, value)
     return tree
 
 
 def params_to_flax(net: nn.Module) -> dict:
     """The flax parameter tree of ``net``, ``{"params": {...}}`` as nested
     dicts of numpy arrays: what the JAX package's policies pickle."""
-    return {"params": _to_flax(net)}
+    return {"params": _to_flax(net, lambda p: p)}
+
+
+class ScaleByAdamState(NamedTuple):
+    """optax's Adam state, field for field: ``count`` int32, ``mu`` and
+    ``nu`` trees shaped like the flax parameters."""
+
+    count: np.ndarray
+    mu: dict
+    nu: dict
+
+
+class EmptyState(NamedTuple):
+    """optax's state of a transformation that keeps none (the learning-rate
+    scale in ``optax.adam``)."""
+
+
+def _adam_params(optimizer: torch.optim.Optimizer, net: nn.Module) -> dict[int, str]:
+    """{id(parameter): name} of ``net``'s parameters that ``optimizer``
+    trains; refuses an LSTM cell's ``bias_ih``, whose moments flax has no
+    place for."""
+    names = {id(p): n for n, p in net.named_parameters()}
+    trained = {id(p) for group in optimizer.param_groups for p in group["params"]}
+    for module in net.modules():
+        if isinstance(module, nn.LSTMCell) and id(module.bias_ih) in trained:
+            raise ValueError("the optimizer trains an LSTM cell's bias_ih, which flax's cell does not have")
+    missing = trained - names.keys()
+    if missing:
+        raise ValueError(f"the optimizer trains {len(missing)} tensors that are not parameters of the net")
+    return {i: names[i] for i in trained}
+
+
+def opt_state_from_optax(optimizer: torch.optim.Optimizer, net: nn.Module, state) -> torch.optim.Optimizer:
+    """Load optax's Adam state ``(ScaleByAdamState(count, mu, nu),
+    EmptyState())`` (as ``optax.adam(...).init`` or ``update`` returns it,
+    or ``opt_state_to_optax``) into ``optimizer``, a ``torch.optim.Adam``
+    over parameters of ``net``. Returns ``optimizer``."""
+    adam = state[0]
+    trained = _adam_params(optimizer, net)
+    mu, nu = _state_dict(net, adam.mu), _state_dict(net, adam.nu)
+    count = float(np.asarray(adam.count))
+    for group in optimizer.param_groups:
+        on_device = group.get("capturable", False) or group.get("fused", False)
+        for p in group["params"]:
+            name = trained[id(p)]
+            optimizer.state[p] = {
+                "step": torch.tensor(count, dtype=torch.float32, device=p.device if on_device else "cpu"),
+                "exp_avg": mu[name].to(p.device).clone(),
+                "exp_avg_sq": nu[name].to(p.device).clone(),
+            }
+    return optimizer
+
+
+def opt_state_to_optax(optimizer: torch.optim.Optimizer, net: nn.Module) -> tuple[ScaleByAdamState, EmptyState]:
+    """``optimizer``'s Adam state (a ``torch.optim.Adam`` over parameters of
+    ``net``) as optax's ``(ScaleByAdamState(count, mu, nu), EmptyState())``
+    with numpy leaves; a parameter without state (untrained, or not in the
+    optimizer) has zero moments."""
+    _adam_params(optimizer, net)
+    states = [s for s in optimizer.state.values() if "step" in s]
+    count = np.int32(max((int(s["step"]) for s in states), default=0))
+
+    def moment(key):
+        def value(p):
+            s = optimizer.state.get(p)
+            return s[key] if s else torch.zeros_like(p)
+
+        return {"params": _to_flax(net, value)}
+
+    return ScaleByAdamState(count=count, mu=moment("exp_avg"), nu=moment("exp_avg_sq")), EmptyState()
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:

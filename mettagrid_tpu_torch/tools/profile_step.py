@@ -22,13 +22,13 @@ the start of the run. Prints one JSON object and writes it to --out.
 from __future__ import annotations
 
 import argparse
-import bisect
 import json
 import subprocess
 from pathlib import Path
 
 import torch
 
+from mettagrid_tpu_torch.profiling.phase_timing import span_times
 from mettagrid_tpu_torch.tools.bench_run import AGENTS, ENVS, POOL, VARIANTS, BenchRun
 
 STEPS = 32
@@ -44,31 +44,7 @@ def trace(bench, state, out, n: int, spans: bool = True):
     acts = [torch.profiler.ProfilerActivity.CUDA] + ([torch.profiler.ProfilerActivity.CPU] if spans else [])
     with torch.profiler.profile(activities=acts) as prof:
         state, out, secs = bench.timed(state, out, n)
-    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
-    span_ms: dict = {}
-    windows = []  # (start_us, end_us, name) of each step.* span on the device timeline
-    kernels = []  # (start_us, duration_us, name) of each device event
-    for evt in prof.events():
-        tr = evt.time_range
-        if evt.name.startswith("step."):
-            span = span_ms.setdefault(evt.name, {"host_ms": 0.0, "device_ms": 0.0})
-            if evt.device_type == cpu:
-                span["host_ms"] += tr.elapsed_us() / 1e3 / n
-            elif evt.device_type == cuda:
-                windows.append((tr.start, tr.end, evt.name))
-        elif evt.device_type == cuda:
-            kernels.append((tr.start, tr.elapsed_us(), evt.name))
-    # Device time of the kernels that start inside each span's device window.
-    windows.sort()
-    starts = [w[0] for w in windows]
-    by_name: dict = {}
-    for start, dur, name in kernels:
-        i = bisect.bisect_right(starts, start) - 1
-        if i >= 0 and start < windows[i][1]:
-            span_ms[windows[i][2]]["device_ms"] += dur / 1e3 / n
-        k = by_name.setdefault(name, [0.0, 0])
-        k[0] += dur / 1e3 / n
-        k[1] += 1
+    span_ms, by_name = span_times(prof, n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     return state, out, {
         "step_ms_traced": secs / n * 1e3,

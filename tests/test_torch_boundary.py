@@ -1,8 +1,10 @@
 """The port's import boundary and device rules.
 
 The port imports neither jax, flax, optax nor anything of the JAX package,
-and the import-graph scan reaches every subpackage; its entry points refuse
-to run without a CUDA device unless asked for the CPU; on CPU tensors the
+and the import-graph scan reaches every subpackage (the learner, the
+measuring tools, the demos and the host utilities among them); its entry
+points, the demos among them, refuse to run without a CUDA device unless
+asked for the CPU; on CPU tensors the
 B1, B2, B6a and B6b wrappers take their plain versions and launch nothing;
 the reference-RNG step refuses draws fed from outside.
 """
@@ -22,7 +24,9 @@ PACKAGE = ROOT / "mettagrid_tpu_torch"
 
 FORBIDDEN = ("jax", "flax", "optax", "mettagrid_tpu")
 # Subpackages the import-graph scan must reach.
-SUBPACKAGES = ("engine", "envs", "simulator", "parity", "policy", "runner", "util", "tools")
+SUBPACKAGES = ("engine", "envs", "simulator", "parity", "policy", "runner", "util", "tools", "parallel", "perf",
+               "profiling", "test_support", "demos", "util.tracer", "util.dict_utils", "util.diversity",
+               "util.module", "util.uri_resolvers", "parallel.train", "profiling.phase_timing")
 
 
 def _forbidden(name: str) -> bool:
@@ -172,6 +176,20 @@ def test_policy_entry_points_need_a_device_or_cpu(monkeypatch, tmp_path):
     for policy in (random, NoopMultiAgentPolicy()):
         policy.step_batch(np.zeros((2, 4, 3), np.uint8), acts)
         assert 0 <= acts.min() and acts.max() < 5
+
+
+def test_demos_need_a_device_or_cpu(monkeypatch):
+    """The training and PettingZoo demos raise without CUDA unless asked
+    for the CPU."""
+    from mettagrid_tpu_torch.demos.demo_pettingzoo import run
+    from mettagrid_tpu_torch.demos.demo_train import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name, demo in (("train", lambda **kw: train(num_envs=2, steps=1, **kw)),
+                       ("pettingzoo", lambda **kw: run(episodes=1, **kw))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            demo()
+        assert len(demo(device="cpu")) == 1, name
 
 
 def test_api_imports_no_optional_framework():
