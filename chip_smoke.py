@@ -249,7 +249,26 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
     time: the step's kernels and copies, and each phase's);
 37. python -m mettagrid_tpu_torch.demos.demo_train in a fresh process on
     the card (exit 0, its printed line, finite losses) and the PettingZoo
-    demo on the card.
+    demo on the card;
+38. assembly lines at full width: make_assembly_lines(24, max_steps=1000)
+    (24 MapGen instances of 6x6 perimeter rooms, two mines and two hubs
+    each, balanced terrain; 60x60 maps) through
+    MettaGridVectorEnv(num_envs=4096, map_pool=64, auto_reset=True) with
+    random actions from numpy: route B1, 64 distinct maps, B1 launched
+    once per observation pass (reset, 8 warm-up and 32 timed steps from the
+    counts at 0) and no other kernel, finite outputs, agents moved; B1
+    against its plain version on the live state (both packings), timed
+    beside the flagship's time from phase 3; prints env-steps/s (host
+    clock), the seconds the host took to build the 64 maps and the peak
+    device memory;
+39. a procedural BSP arena: the flagship game on a 128x128 MapGen BSP map
+    (12 rooms, 24 agents and 20 walls scattered over it; 138x138 with the
+    border) the same way: route B3, its image in device memory, B3 timed
+    beside arena_128's time from phase 12, with its bound;
+40. GPU against CPU on a small assembly-lines config (4 agents, 64 envs,
+    max_steps 24, a pool of three MapGen maps, 48 steps, agent orders and
+    reset maps fed from numpy): every output and every state field but rng
+    byte-equal.
 
 In phases 14 and 25 B7's library yardstick (``library_ms``) is one
 torch.gather of the image over a precomputed index of every window word,
@@ -257,9 +276,11 @@ which computes B7's function where every window lies inside the image (the
 index build is not timed); the port never calls it.
 
 Every phase asserts. The line before the last is the kernels' JSON record;
-the last line is {"ok": true, "device": {...}}. With no CUDA device, or
-without the package beside it, the script exits non-zero and prints no
-result.
+a kernel's other cells ride in its entry under their names (B1's
+"assembly_lines", B2's "network", B3's "bsp_arena", B7's and B8's
+"full_combat"), each with the entry's keys. The last line is
+{"ok": true, "device": {...}}. With no CUDA device, or without the
+package beside it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -525,20 +546,22 @@ def _main_path(torch, card: str):
 
 
 def _gpu_vs_cpu(torch, variant: str, pool: int, E: int, n_steps: int, max_steps: int, armed: bool = False,
-                change=None, reference_rng=None, action_mode: str = "auto"):
+                change=None, reference_rng=None, action_mode: str = "auto", cfg=None):
     """The card's path against the CPU plain path, byte for byte, with agent
     orders, reset maps and (where the config has events) event ranks drawn
     with numpy and fed to both; ``change(cfg)`` edits the variant's config
     first. Under the reference-RNG step (the variant's, or ``reference_rng``)
     only the actions and the reset maps are fed: the MT19937 twin draws the
     rest on each device. full_combat takes its loadouts and its family's
-    action script. Returns the card's trace of (state, outputs) as numpy,
-    one entry per step and one for the reset."""
+    action script. ``cfg``, where given, is run in place of the variant's
+    config, ``variant`` then only naming it. Returns the card's trace of
+    (state, outputs) as numpy, one entry per step and one for the reset."""
     from mettagrid_tpu_torch.engine import make_reset, make_step
     from mettagrid_tpu_torch.engine.interop import state_to_numpy
-    from mettagrid_tpu_torch.tools.bench_run import AGENTS, build_pool, full_combat_script, make_cfg, variant_options
+    from mettagrid_tpu_torch.tools.bench_run import build_pool, full_combat_script, make_cfg, variant_options
 
-    cfg = make_cfg(variant)
+    if cfg is None:
+        cfg = make_cfg(variant)
     if armed:
         cfg.game.agent.inventory.initial = {"laser": 5, "armor": 1, "heart": 9}
     if change is not None:
@@ -549,6 +572,7 @@ def _gpu_vs_cpu(torch, variant: str, pool: int, E: int, n_steps: int, max_steps:
     if reference_rng is not None:
         opts["reference_rng"] = reference_rng
     rrng = opts["reference_rng"]
+    A = program.num_agents
     n_actions = len(program.action_names)
     names = program.action_names
     angry = names.index("change_vibe_angry") if "change_vibe_angry" in names else None
@@ -563,16 +587,16 @@ def _gpu_vs_cpu(torch, variant: str, pool: int, E: int, n_steps: int, max_steps:
         trace = [(state_to_numpy(state), {k: v.cpu().numpy().copy() for k, v in out._asdict().items()})]
         for _ in range(n_steps):
             if full_combat:
-                acts, vibes = full_combat_script(program, rng, (E, AGENTS))
+                acts, vibes = full_combat_script(program, rng, (E, A))
             elif angry is None:
-                acts = rng.integers(-1, n_actions + 1, (E, AGENTS)).astype(np.int32)
+                acts = rng.integers(-1, n_actions + 1, (E, A)).astype(np.int32)
                 vibes = np.zeros_like(acts)
             else:
-                acts = np.where(rng.random((E, AGENTS)) < 0.8, rng.integers(0, 5, (E, AGENTS)),
-                                rng.integers(-1, n_actions + 1, (E, AGENTS))).astype(np.int32)
-                vibes = np.where(rng.random((E, AGENTS)) < 0.3, angry,
-                                 rng.integers(-1, n_actions + 1, (E, AGENTS))).astype(np.int32)
-            perm = np.stack([rng.permutation(AGENTS) for _ in range(E)]).astype(np.int32)
+                acts = np.where(rng.random((E, A)) < 0.8, rng.integers(0, 5, (E, A)),
+                                rng.integers(-1, n_actions + 1, (E, A))).astype(np.int32)
+                vibes = np.where(rng.random((E, A)) < 0.3, angry,
+                                 rng.integers(-1, n_actions + 1, (E, A))).astype(np.int32)
+            perm = np.stack([rng.permutation(A) for _ in range(E)]).astype(np.int32)
             maps = rng.integers(0, pool, E).astype(np.int32)
             ranks = rng.random((E, 1, N), dtype=np.float32) if program.events and not rrng else None
             t = lambda a: None if a is None else torch.from_numpy(a).to(dev)  # noqa: E731
@@ -2007,6 +2031,72 @@ def _trainer_demos(torch, card: str):
           f"PettingZoo demo on the card: {len(totals)} episodes, totals {totals} on {card}", flush=True)
 
 
+def _mapgen_path(torch, card: str, phase: int, variant: str, kernel, yardstick: dict):
+    """Phases 38 and 39: a MapGen variant of tools/bench_run.py through
+    MettaGridVectorEnv at 4096 envs with a pool of 64 maps, auto-reset on,
+    random actions from numpy: the route, the kernel's launches from the
+    counts at 0 (reset, 8 warm-up and 32 timed steps), finite outputs,
+    agents moved, then the kernel against its plain version on the live
+    state. ``yardstick`` is the record
+    of the same kernel on its earlier cell, printed beside this one."""
+    from mettagrid_tpu_torch.envs import MettaGridVectorEnv
+    from mettagrid_tpu_torch.tools.bench_run import make_cfg
+
+    cfg = make_cfg(variant)
+    E, pool, n_warm, n_timed = 4096, 64, 8, 32
+    label = _KERNELS[kernel.__name__][1]
+    A = cfg.game.num_agents
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # The maps alone, built as the vector env builds its pool (seed + i).
+    t0 = time.perf_counter()
+    maps = [cfg.game.map_builder.model_copy(update={"seed": i}).create().build_for_num_agents(A)
+            for i in range(pool)]
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    env = MettaGridVectorEnv(cfg, num_envs=E, map_pool=pool, auto_reset=True, seed=0)
+    env_s = time.perf_counter() - t0
+    distinct = len({env._init.grid[i].tobytes() for i in range(pool)})
+    assert distinct == pool, f"{distinct} distinct maps in a pool of {pool}"
+    fn = env._step_fn.obs_fn
+    assert fn.route == label and fn.tail is kernel, f"{variant} routes to {fn.route}, not {label}"
+    H, W = maps[0].grid.shape
+    rng = np.random.default_rng(phase)
+    acts = [rng.integers(0, len(env.action_names), E * A).astype(np.int32) for _ in range(n_warm + n_timed)]
+
+    _zero_counts()
+    env.reset()
+    for a in acts[:n_warm]:
+        env.step(a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in acts[n_warm:]:
+        obs, rew, term, trunc, _ = env.step(a)
+    dt = time.perf_counter() - t0
+    launches = {name: k.launches for name, (k, _) in _wrappers().items() if k.launches}
+    want = 1 + n_warm + n_timed
+    assert launches == {kernel.__name__: want}, f"{variant} launched {launches} for {want} obs passes"
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    state = env.state
+    assert np.isfinite(rew).all() and torch.isfinite(state.game_stats).all(), "a NaN output"
+    assert torch.isfinite(state.episode_rewards).all() and obs.dtype == np.uint8
+    moved = int(((state.obj_r[:, :A] != state.agent_spawn_r) | (state.obj_c[:, :A] != state.agent_spawn_c)).sum())
+    assert moved > 0, "no agent moved"
+    record = _tail_record(torch, fn, state)
+    record["launches"] = launches[kernel.__name__]
+    print(f"[{phase}] {variant}: {pool} MapGen maps of {H}x{W} built in {build_s:.3f} s on the host "
+          f"({build_s / pool * 1e3:.1f} ms each; the vector env's constructor {env_s:.3f} s, compile and set-up "
+          f"included); route {fn.route}; {E} envs x {A} agents through MettaGridVectorEnv: "
+          f"{E * n_timed / dt:.1f} env-steps/s, {dt / n_timed * 1e3:.3f} ms/step (host clock over {n_timed} "
+          f"steps); {label} launched {record['launches']} times for {want} obs passes, no other kernel; "
+          f"{moved} agents off their spawn cell; peak device memory {peak:.2f} GiB on {card}", flush=True)
+    print(f"[{phase}] {label} equal to its plain version (normal and wide packing) on the live {variant} state: "
+          f"{_times(record)}; {_plan_note(kernel)}; on its earlier cell {yardstick['ms']:.4f} ms "
+          f"(bound {yardstick['bound_ms']:.4f} ms)", flush=True)
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -2111,7 +2201,17 @@ def main() -> int:
     _trainer_gpu_vs_cpu(torch, card)
     _trainer_path(torch, card)
     _trainer_demos(torch, card)
-    print(f"[37] phases 35-37 took {time.perf_counter() - t_train:.1f} s; all phases passed in "
+    print(f"[37] phases 35-37 took {time.perf_counter() - t_train:.1f} s", flush=True)
+    from mettagrid_tpu_torch.tools.bench_run import make_cfg
+
+    t_mapgen = time.perf_counter()
+    b1["assembly_lines"] = _mapgen_path(torch, card, 38, "assembly_lines", wrappers["obs_tail_static_v2"][0], b1)
+    b3["bsp_arena"] = _mapgen_path(torch, card, 39, "bsp_arena", wrappers["obs_tail_dyn_v2"][0], b3)
+    torch.cuda.empty_cache()
+    _gpu_vs_cpu(torch, "assembly_lines", 3, 64, 48, 24, cfg=make_cfg("assembly_lines", num_agents=4))
+    print("[40] GPU path equals the CPU path on assembly_lines (4 agents, MapGen maps) over 48 steps of 64 envs, "
+          "pool of 3 maps, with auto-resets (every output, every state field but rng)", flush=True)
+    print(f"[40] phases 38-40 took {time.perf_counter() - t_mapgen:.1f} s; all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6a, b6b, b7, b8]}))

@@ -1,8 +1,8 @@
 """mettagrid_tpu_torch — the PyTorch/CUDA port of the mettagrid_tpu engine.
 
 A second package beside ``mettagrid_tpu`` (the JAX reference). Its host-side
-compiler (``config``, ``maps``, ``builder`` and the numpy modules of
-``engine``) is a copy of the reference's; the device engine (state, reset,
+compiler (``config``, ``maps``, ``mapgen``, ``builder`` and the numpy
+modules of ``engine``) is a copy of the reference's; the device engine (state, reset,
 step, observations) is rewritten in PyTorch, and each Pallas TPU kernel on
 its path is a CUDA kernel written by hand for Hopper (``engine/csrc``).
 The policies (``policy``) are ``torch.nn`` twins of the reference's flax

@@ -96,3 +96,57 @@ def make_navigation(num_agents: int) -> MettaGridConfig:
         ),
     )
 
+
+def make_assembly_lines(
+    num_agents: int,
+    max_steps: int,
+    game_objects: dict,
+    map_builder_objects: dict,
+    width: int = 6,
+    height: int = 6,
+    terrain: str = "no-terrain",
+    chain_length: int = 2,
+    num_sinks: int = 0,
+    dir: Optional[str] = None,
+) -> MettaGridConfig:
+    """Assembly-lines preset: one agent per perimeter-in-context mini-room,
+    tiled via MapGen instances (reference: builder/envs.py:111-161)."""
+    from mettagrid_tpu_torch.mapgen.mapgen import MapGen
+    from mettagrid_tpu_torch.maps.perimeter_incontext import PerimeterInContextMapBuilder
+
+    objects = dict(game_objects)
+    objects.setdefault("wall", WallConfig())
+    return MettaGridConfig(
+        label="assembly_lines",
+        desync_episodes=False,
+        game=GameConfig(
+            max_steps=max_steps,
+            num_agents=num_agents,
+            objects=objects,
+            map_builder=MapGen.Config(
+                instances=num_agents,
+                instance=PerimeterInContextMapBuilder.Config(
+                    agents=1,
+                    width=width,
+                    height=height,
+                    objects=map_builder_objects,
+                    density=terrain,
+                    chain_length=chain_length,
+                    num_sinks=num_sinks,
+                    dir=dir,
+                ),
+            ),
+            actions=ActionsConfig(
+                noop=NoopActionConfig(),
+                move=MoveActionConfig(),
+                change_vibe=ChangeVibeActionConfig(enabled=False),
+            ),
+            agent=AgentConfig(
+                rewards={"heart": reward(InventoryValue(item="heart"))},
+                inventory=InventoryConfig(
+                    default_limit=1,
+                    limits={"heart": ResourceLimitsConfig(base=15, resources=["heart"])},
+                ),
+            ),
+        ),
+    )

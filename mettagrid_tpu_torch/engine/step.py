@@ -486,12 +486,19 @@ def make_step(
     as the reference draws them from its own keys. It excludes
     external_perm, event_ranks and query_ranks.
 
-    action_mode: "auto" takes the wave phase where it is provably
-    sequential-equivalent (actions_fast.fast_mode_ok) and no action handler
-    draws from the twin, else the sequential phase; "sequential" forces the
-    sequential phase (reference step.py:595-629). It is a hook for parity
-    with the reference's API and for tests that hold the wave phase against
-    the sequential one; no path of the port's own sets it.
+    action_mode: one of "auto", "fast", "pure" and "sequential"
+    (reference step.py:595-629); anything else raises ValueError. "auto"
+    takes the wave phase where it is provably sequential-equivalent
+    (actions_fast.fast_mode_ok), with pure-move waves where
+    actions_fast.pure_move_ok holds, else the sequential phase; "fast"
+    forces the wave phase (handler-chain waves); "pure" forces the
+    pure-move waves; "sequential" forces the sequential phase. Under
+    reference_rng, a program whose action handlers draw from the twin takes
+    the sequential phase whatever the mode, as in the reference. The forced
+    modes are hooks for parity with the reference's API and for tests that
+    hold the wave phase against the sequential one; no path of the port's
+    own sets them. step.action_phase_kind ("waves" or "sequential") and
+    step.lazy_grid report what was chosen.
 
     obs_tail: "auto" or "v3", the observation tail (obs.make_obs_fn).
 
@@ -531,8 +538,8 @@ def make_step(
     problems = reference_rng_unsupported(program) if reference_rng else []
     if problems:
         raise NotImplementedError("reference_rng cannot bit-match this config: " + "; ".join(sorted(set(problems))))
-    if action_mode not in ("auto", "sequential"):
-        raise ValueError(f"action_mode must be 'auto' or 'sequential', not {action_mode!r}")
+    if action_mode not in ("auto", "fast", "pure", "sequential"):
+        raise ValueError(f"action_mode must be 'auto', 'fast', 'pure' or 'sequential', not {action_mode!r}")
     if reference_rng and external_perm:
         raise ValueError("reference_rng draws the agent order from the MT19937 twin; it excludes external_perm")
     dev = resolve_device(device)
@@ -548,8 +555,9 @@ def make_step(
 
     # The action phase as the reference chooses it (step.py:595-629).
     acts_consume = reference_rng and actions_consume_rng(program)
-    use_fast = action_mode == "auto" and fast_mode_ok(program) and not acts_consume
-    use_pure = use_fast and pure_move_ok(program)
+    auto = action_mode == "auto"
+    use_fast = (action_mode in ("fast", "pure") or (auto and fast_mode_ok(program))) and not acts_consume
+    use_pure = use_fast and (action_mode == "pure" or (auto and pure_move_ok(program)))
     # A program that reads the grid (a raycast) keeps its agent layer
     # current; the reference's lazy grid ignores queries (ROADMAP Queue 3).
     lazy_grid = use_pure and static_background_ok(program) and not reads_grid(program)

@@ -8,7 +8,6 @@ and trims agent spawn points.
 
 from __future__ import annotations
 
-import importlib
 import logging
 from abc import ABC, abstractmethod
 from pathlib import Path
@@ -28,27 +27,9 @@ from pydantic import ModelWrapValidatorHandler, SerializeAsAny, model_serializer
 
 from mettagrid_tpu_torch.base_config import Config
 from mettagrid_tpu_torch.maps.types import MapGrid
+from mettagrid_tpu_torch.util.module import load_symbol
 
 logger = logging.getLogger(__name__)
-
-
-def load_symbol(path: str) -> Any:
-    """Load a symbol from a dotted module path, supporting nested attributes
-    (e.g. "pkg.mod.Builder.Config")."""
-    parts = path.split(".")
-    for split in range(len(parts) - 1, 0, -1):
-        module_name = ".".join(parts[:split])
-        try:
-            obj: Any = importlib.import_module(module_name)
-        except ImportError:
-            continue
-        try:
-            for attr in parts[split:]:
-                obj = getattr(obj, attr)
-        except AttributeError:
-            continue
-        return obj
-    raise ImportError(f"Cannot load symbol {path!r}")
 
 
 class GameMap:
@@ -107,7 +88,9 @@ class MapBuilderConfig(Config, Generic[TBuilder]):
     @classmethod
     def _validate_with_type(cls, v: Any, handler: ModelWrapValidatorHandler[Self]) -> Self:
         """Accepts a specific MapBuilderConfig instance, or a dict with an
-        optional {"type": "<dotted.path.to.Builder.Config>"} discriminator."""
+        optional {"type": "<dotted.path.to.Builder.Config>"} discriminator.
+        A type path into the JAX package (``mettagrid_tpu.``) raises
+        ImportError before anything is imported (util.module.load_symbol)."""
         if isinstance(v, MapBuilderConfig):
             if not isinstance(v, cls):
                 raise TypeError(f"Expected {cls.__qualname__} subclass, got {type(v).__qualname__}")

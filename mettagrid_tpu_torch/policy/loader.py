@@ -19,6 +19,7 @@ from mettagrid_tpu_torch.policy.policy import (
     MultiAgentPolicy,
     PolicySpec,
 )
+from mettagrid_tpu_torch.util.module import refuse_reference
 
 logger = logging.getLogger(__name__)
 
@@ -95,5 +96,7 @@ def _walk_and_import_package(package_name: str) -> None:
 
 
 def discover_and_register_policies(*packages: str) -> None:
+    for package_name in packages:
+        refuse_reference(package_name)
     for package_name in [*POLICY_PACKAGES, *packages]:
         _walk_and_import_package(package_name)

@@ -17,7 +17,6 @@ tree of numpy arrays (policy/interop.py).
 
 from __future__ import annotations
 
-import importlib
 import inspect
 import pickle
 from typing import Any, Dict, Generic, Optional, Tuple, TypeVar
@@ -30,6 +29,7 @@ from mettagrid_tpu_torch.engine.state import resolve_device
 from mettagrid_tpu_torch.policy.interop import params_from_flax, params_to_flax
 from mettagrid_tpu_torch.policy.lstm import LSTMPolicy
 from mettagrid_tpu_torch.simulator.interface import AgentObservation
+from mettagrid_tpu_torch.util.module import load_symbol
 
 # ---------------------------------------------------------------------
 # registry
@@ -68,8 +68,7 @@ class PolicySpec(BaseModel):
     def resolve_class(self) -> type:
         if self.class_path in POLICY_REGISTRY:
             return POLICY_REGISTRY[self.class_path]
-        module, _, cls_name = self.class_path.rpartition(".")
-        return getattr(importlib.import_module(module), cls_name)
+        return load_symbol(self.class_path)
 
 
 # ---------------------------------------------------------------------

@@ -87,8 +87,18 @@ and the one of the query kinds and the position mutations:
   directions (tests/test_queries.py:107-131). Events and spawns make the
   background mutable, so the observations take B2.
 
-Each runs over a pool of random maps (25x25 but for arena_128) whose seeds
-come from np.random.default_rng(0).
+and two on procedural MapGen maps (``mettagrid_tpu_torch.mapgen``):
+
+* ``assembly_lines``: ``make_assembly_lines(24, 1000)``, one agent per 6x6
+  perimeter room tiled by MapGen (60x60 maps), two plain mines and two
+  plain hubs per room, balanced terrain; a static background, so B1;
+* ``bsp_arena``: the flagship game on a 128x128 MapGen BSP dungeon (12
+  rooms, 24 agents and 20 walls scattered over it, 138x138 with the
+  border): every dungeon wall an object (N 13,635), and an image too large
+  to stage, so B3.
+
+Each runs over a pool of maps (random 25x25 maps but for arena_128 and
+the MapGen variants) whose seeds come from np.random.default_rng(0).
 """
 
 from __future__ import annotations
@@ -109,7 +119,8 @@ POOL = 64
 WARMUP = 8
 VARIANTS = (
     "flagship", "combat", "general", "arena_lp", "arena_values", "general_lp", "arena_128", "territory",
-    "flagship_v3", "arena_mood", "arena_mood_v3", "tithe_rrng", "full_combat", "network",
+    "flagship_v3", "arena_mood", "arena_mood_v3", "tithe_rrng", "full_combat", "network", "assembly_lines",
+    "bsp_arena",
 )
 # The vibes the full-combat script picks, and how often (parity/arena.py:627-644).
 FULL_COMBAT_VIBES = ("angry", "shield", "clown", "default")
@@ -436,6 +447,31 @@ def variant_options(variant: str) -> dict:
     return dict(obs_tail="v3" if variant.endswith("_v3") else "auto", reference_rng=variant.endswith("_rrng"))
 
 
+def make_assembly_lines_cfg(num_agents: int):
+    """make_assembly_lines: one agent per 6x6 perimeter room, tiled by MapGen,
+    with two plain object kinds, two of each per room, and balanced terrain."""
+    from mettagrid_tpu_torch.builder import make_assembly_lines
+    from mettagrid_tpu_torch.config.game_config import GridObjectConfig
+
+    objects = {"mine": GridObjectConfig(name="mine"), "hub": GridObjectConfig(name="hub")}
+    return make_assembly_lines(num_agents, 1000, objects, {"mine": 2, "hub": 2}, terrain="balanced")
+
+
+def make_bsp_arena_cfg(num_agents: int):
+    """The flagship game on a procedural dungeon: a 128x128 MapGen BSP map of
+    12 rooms, the agents and 20 loose walls scattered over it."""
+    from mettagrid_tpu_torch.mapgen import ChildrenAction, MapGen
+    from mettagrid_tpu_torch.mapgen.scenes import BSP, Random
+
+    cfg = make_arena(num_agents, combat=False)
+    cfg.game.map_builder = MapGen.Config(
+        width=128, height=128, border_width=5,
+        instance=BSP.Config(rooms=12, min_room_size=4, min_room_size_ratio=0.4, max_room_size_ratio=0.8,
+                            children=[ChildrenAction(scene=Random.Config(agents=num_agents, objects={"wall": 20}),
+                                                     where="full")]))
+    return cfg
+
+
 def make_cfg(variant: str, num_agents: int = AGENTS):
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; expected one of {VARIANTS}")
@@ -451,6 +487,10 @@ def make_cfg(variant: str, num_agents: int = AGENTS):
         return make_territory_cfg(num_agents)
     if variant == "network":
         return make_network_cfg(num_agents)
+    if variant == "assembly_lines":
+        return make_assembly_lines_cfg(num_agents)
+    if variant == "bsp_arena":
+        return make_bsp_arena_cfg(num_agents)
     if variant.startswith("general"):
         cfg = make_general_cfg(num_agents)
     elif variant == "arena_128":

@@ -4,7 +4,8 @@
 
 V is one of tools/bench_run.py's variants: flagship (the default), combat,
 general, arena_lp, arena_values, general_lp, arena_128, territory,
-flagship_v3, arena_mood, arena_mood_v3, tithe_rrng, full_combat, network.
+flagship_v3, arena_mood, arena_mood_v3, tithe_rrng, full_combat, network,
+assembly_lines, bsp_arena.
 Steps the variant (4096 envs x 24 agents, a pool of 64 maps, auto-reset,
 observations carried) on the CUDA device, with the variant's observation
 tail and, for tithe_rrng, the reference-RNG step. After the warm-up it times

@@ -26,7 +26,8 @@ FORBIDDEN = ("jax", "flax", "optax", "mettagrid_tpu")
 # Subpackages the import-graph scan must reach.
 SUBPACKAGES = ("engine", "envs", "simulator", "parity", "policy", "runner", "util", "tools", "parallel", "perf",
                "profiling", "test_support", "demos", "util.tracer", "util.dict_utils", "util.diversity",
-               "util.module", "util.uri_resolvers", "parallel.train", "profiling.phase_timing")
+               "util.module", "util.uri_resolvers", "parallel.train", "profiling.phase_timing", "mapgen",
+               "mapgen.scenes")
 
 
 def _forbidden(name: str) -> bool:
@@ -352,7 +353,7 @@ def test_reference_rng_refuses_fed_draws():
     with pytest.raises(ValueError, match="obs_tail"):
         obs.make_obs_fn(program, None, "cpu", obs_tail="v4")
     with pytest.raises(ValueError, match="action_mode"):
-        make_step(program, init, action_mode="fast", device="cpu")
+        make_step(program, init, action_mode="parallel", device="cpu")
     cfg = make_mood_cfg(4)
     cfg.game.map_builder = RandomMapBuilder.Config(agents=4, width=11, height=11, border_width=1, objects={"wall": 6})
     program = compile_program(cfg)

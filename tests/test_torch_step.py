@@ -163,3 +163,38 @@ def test_auto_reset_merge_covers_every_field():
     special = {"rng", "map_idx", "mt", "agent_stats", "auto_stats", "game_stats_touched"}
     covered = set(tstep._CONST_RESETS) | set(tstep._POOL_RESET_FIELDS) | set(tstep._DEAD_AT_RESET_MERGE) | special
     assert set(EnvState._fields) == covered
+
+
+def lockstep_pair(jax_pair, port_pair, num_envs, n_steps, seed=0, vibes=False):
+    """Steps a JAX (program, init) and a port (program, init) of one config in
+    lockstep from the JAX reset state, fed the same numpy actions and agent
+    orders and, with a pool of several maps, the JAX engine's map draws;
+    compares every output and every state field but rng after every step.
+    Returns the number of env resets."""
+    (jp, ji), (tp, ti) = jax_pair, port_pair
+    A, P = jp.num_agents, ji.pool_size
+    jstate, jout = jengine.make_reset(jp, ji, num_envs)(0)
+    jstep = jengine.make_step(jp, ji, auto_reset=True, donate=False, external_perm=True)
+    tstep = tengine.make_step(tp, ti, auto_reset=True, external_perm=True, device="cpu")
+    tstate = state_from_numpy(_jax_state_numpy(jstate), "cpu")
+    jbuf = jout.observations
+    tbuf = torch.from_numpy(np.asarray(jout.observations).copy())
+    n_actions = len(jp.action_names)
+    rng = np.random.default_rng(seed)
+    resets = 0
+    for i in range(n_steps):
+        acts = rng.integers(0, n_actions, (num_envs, A)).astype(np.int32)
+        vib = rng.integers(0, 2, (num_envs, A)).astype(np.int32) if vibes else np.zeros((num_envs, A), np.int32)
+        perm = np.stack([rng.permutation(A) for _ in range(num_envs)]).astype(np.int32)
+        resets += int((np.asarray(jstate.terminals) | np.asarray(jstate.truncations)).any(axis=1).sum())
+        maps = _jax_reset_maps(jstate, P) if P > 1 else None
+        jstate, jout = jstep(jstate, jnp.asarray(acts), jnp.asarray(vib), jnp.asarray(perm), jbuf)
+        tstate, tout = tstep(
+            tstate, torch.from_numpy(acts), torch.from_numpy(vib), torch.from_numpy(perm), tbuf,
+            reset_maps=None if maps is None else torch.from_numpy(maps),
+        )
+        _assert_outputs_equal(jout, tout, where=f"step {i}: ")
+        _assert_states_equal(_jax_state_numpy(jstate), tstate, where=f"step {i}: ")
+        jbuf = jout.observations
+        tbuf = tout.observations
+    return resets
