@@ -268,7 +268,32 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
 40. GPU against CPU on a small assembly-lines config (4 agents, 64 envs,
     max_steps 24, a pool of three MapGen maps, 48 steps, agent orders and
     reset maps fed from numpy): every output and every state field but rng
-    byte-equal.
+    byte-equal;
+41. the host reference RNG (parity.ReferenceRng, std::mt19937 built by g++
+    from parity/csrc/parity_rng.cpp; ``native`` asserted) against the
+    engine's MT19937 twin on the card, exactly: 700 raw draws of four seeds
+    across the 624-word twist, uniform_int over eight ranges, shuffle_perm
+    for n in (2, 24, 97) and the draw after it;
+42. the SDK: a Simulation of the flagship arena (24 agents,
+    reference_shuffle, max_steps 24) on the card and one on the CPU, fed
+    the same random actions; after the reset and every step, for all 24
+    agents, build_state (by model_dump), decode_observation,
+    StateHelperCatalog and an InMemoryMemoryStore give the same answers;
+    B1 launched on the card and no other kernel;
+43. the policy servers: the lstm policy (default widths, seeded) on the
+    card behind LocalPolicyServer (JSON) and ProtobufPolicyServer
+    (sim.policy_v1) on 127.0.0.1, each driving a Rollout of the flagship
+    arena on the card (24 agents, 32 steps) through RemotePolicy and
+    ProtobufRemotePolicy; every request's actions equal an in-process twin
+    of the policy on the card fed the same observations; prints the median
+    host ms per request;
+44. the renderers and the demo: the miniscope (ASCII) and log renderers of
+    phase 42's two Simulations give the same frames and lines, string for
+    string; a replay written by a Rollout on the card passes
+    validate_replay with no issues and replay_viewer writes its HTML;
+    ``python -m mettagrid_tpu_torch.demo --steps=16 --render`` exits 0 in
+    a fresh process on the card; a LiveViewer on the card serves one
+    client its first frame and a step.
 
 In phases 14 and 25 B7's library yardstick (``library_ms``) is one
 torch.gather of the image over a precomputed index of every window word,
@@ -2097,6 +2122,303 @@ def _mapgen_path(torch, card: str, phase: int, variant: str, kernel, yardstick: 
     return record
 
 
+def _reference_rng(torch, card: str):
+    """Phase 41: the port's host ReferenceRng (the g++-built std::mt19937)
+    against the engine's MT19937 twin on the card, exactly."""
+    from mettagrid_tpu_torch.engine.mt19937 import mt_init, mt_next, shuffle_perm, uniform_int
+    from mettagrid_tpu_torch.parity import ReferenceRng
+    from mettagrid_tpu_torch.parity.rng import library_path
+
+    def twin(seeds):
+        return mt_init(torch.tensor(seeds, dtype=torch.int64, device="cuda"))
+
+    def every(n):
+        return torch.ones(n, dtype=torch.bool, device="cuda")
+
+    t0 = time.perf_counter()
+    seeds = [5489, 0, 12345, 2**32 - 1]
+    refs = [ReferenceRng(s) for s in seeds]
+    assert all(r.native for r in refs), "the native reference RNG did not build"
+    state = twin(seeds)
+    for i in range(700):
+        state, u = mt_next(state, every(4))
+        assert u.tolist() == [r.next_u32() for r in refs], f"raw draw {i}"
+    ranges = [1, 2, 5, 23, 24, 600, 65535, 10**6]
+    refs = [ReferenceRng(s) for s in (7, 99)]
+    state = twin([7, 99])
+    for hi in ranges:
+        for _ in range(20):
+            state, x = uniform_int(state, torch.full((2,), hi + 1, dtype=torch.int64, device="cuda"), every(2))
+            assert x.tolist() == [r.uniform_int(0, hi) for r in refs], f"uniform_int(0, {hi})"
+    for n in (2, 24, 97):
+        seeds = [n * 31 + 1, n * 31 + 2]
+        refs = [ReferenceRng(s) for s in seeds]
+        state, perm = shuffle_perm(twin(seeds), torch.full((2,), n, dtype=torch.int64, device="cuda"), n + 3, every(2))
+        for e, ref in enumerate(refs):
+            assert perm[e, :n].tolist() == ref.permutation(n), f"shuffle of {n}"
+            assert perm[e, n:].tolist() == list(range(n, n + 3))
+        state, u = mt_next(state, every(2))
+        assert u.tolist() == [r.next_u32() for r in refs], f"the draw after the shuffle of {n}"
+    print(f"[41] ReferenceRng (native, {library_path().name}) equals the engine's MT19937 twin on the card: 700 raw "
+          f"draws of 4 seeds across the twist, uniform_int over {len(ranges)} ranges x 20 draws, shuffle_perm for n "
+          f"in (2, 24, 97) with the next draw; {time.perf_counter() - t0:.1f} s on {card}", flush=True)
+
+
+def _b1_only(where: str) -> int:
+    """B1's launches since the counts were set to 0; asserts it launched and
+    no other kernel did."""
+    launches = {name: k.launches for name, (k, _) in _wrappers().items()}
+    b1 = launches.pop("obs_tail_static_v2")
+    assert b1 > 0, f"{where}: B1 never launched"
+    others = {k: v for k, v in launches.items() if v}
+    assert not others, f"{where}: other kernels launched: {others}"
+    return b1
+
+
+class _LogLines:
+    """The lines the port's LogRenderer logs, in order."""
+
+    def __init__(self):
+        import logging
+
+        self.lines = []
+        handler = logging.Handler(logging.INFO)
+        handler.emit = lambda record: self.lines.append(record.getMessage())
+        logger = logging.getLogger("mettagrid_tpu_torch.renderer.log_renderer")
+        logger.setLevel(logging.INFO)
+        logger.propagate = False
+        logger.addHandler(handler)
+
+
+def _sdk_answers(sdk, sim, info, memory, a: int, step: int):
+    """build_state, decode_observation, the helper catalog and a memory
+    store's retrieval for agent a, as plain values."""
+    state = sdk.build_state(sim, a)
+    obs = sim.agent(a).observation
+    assert all(type(t.value) is int and type(t.location_byte) is int for t in obs.tokens)
+    d = sdk.decode_observation(sdk.ObservationEnvelope(obs, info, step))
+    cells = [(tuple(c.location), c.tags, c.features) for c in d.cells]
+    h = sdk.StateHelperCatalog(state)
+    nearest = h.nearest_visible_entity()
+    counts = h.visible_entity_counts()
+    memory.add(sdk.MemoryRecord(record_id=f"s{step}a{a}", kind="event", tags=sorted(counts), step=step,
+                                importance=len(counts) / 10))
+    hits = [r.model_dump() for r in memory.retrieve(sdk.MemoryQuery.from_state(state), limit=3)]
+    helpers = (h.position(), counts, h.visible_entity_ids(max_distance=3),
+               None if nearest is None else nearest.model_dump(),
+               [h.distance_to_entity(e.entity_id) for e in state.visible_entities])
+    return state.model_dump(), (d.center_row, d.center_col, cells, d.global_features), helpers, hits
+
+
+def _sdk(torch, card: str):
+    """Phase 42: the SDK on a Simulation on the card against one on the CPU
+    (the flagship arena, reference_shuffle); the miniscope and log renderers
+    ride on both, for phase 44. Returns the renderers' output per device."""
+    import io
+
+    import mettagrid_tpu_torch.sdk as sdk
+    from mettagrid_tpu_torch.builder import make_arena
+    from mettagrid_tpu_torch.policy import PolicyEnvInterface
+    from mettagrid_tpu_torch.renderer import LogRenderer, MiniscopeRenderer
+    from mettagrid_tpu_torch.simulator import Simulation
+
+    t0 = time.perf_counter()
+    cfg = make_arena(24, combat=False)
+    cfg.game.max_steps = 24
+    info = PolicyEnvInterface.from_config(cfg)
+    log = _LogLines()
+    out = {dev: {"frames": [], "log": [], "minis": MiniscopeRenderer(fps=0, out=io.StringIO(), use_emoji=False)}
+           for dev in ("cuda", "cpu")}
+    _zero_counts()
+    sims = {}
+    for dev in ("cuda", "cpu"):
+        mark = len(log.lines)
+        sims[dev] = Simulation(cfg, seed=42, reference_shuffle=True, device=dev,
+                               event_handlers=[out[dev]["minis"], LogRenderer()])
+        out[dev]["log"] += log.lines[mark:]
+    gpu, cpu = sims["cuda"], sims["cpu"]
+    memories = {dev: sdk.InMemoryMemoryStore() for dev in sims}
+    names = gpu.action_names
+    rng = np.random.default_rng(42)
+    steps = entities = 0
+    while True:
+        for dev, sim in sims.items():
+            out[dev]["frames"].append(out[dev]["minis"].render_frame())
+        for a in range(gpu.num_agents):
+            g = _sdk_answers(sdk, gpu, info, memories["cuda"], a, steps)
+            c = _sdk_answers(sdk, cpu, info, memories["cpu"], a, steps)
+            for what, x, y in zip(("build_state", "decode_observation", "helpers", "memory"), g, c):
+                assert x == y, f"step {steps}, agent {a}: {what} differs"
+            entities += len(g[0]["visible_entities"])
+        if gpu.is_done or cpu.is_done:
+            break
+        for a in range(gpu.num_agents):
+            action = names[int(rng.integers(0, len(names)))]
+            gpu.agent(a).set_action(action)
+            cpu.agent(a).set_action(action)
+        for dev, sim in sims.items():
+            mark = len(log.lines)
+            sim.step()
+            out[dev]["log"] += log.lines[mark:]
+        steps += 1
+    assert gpu.is_done and cpu.is_done and steps == 24
+    route = gpu._step_fn.obs_fn.route
+    assert route == "B1", route
+    b1 = _b1_only("phase 42")
+    print(f"[42] the SDK on a Simulation (make_arena(24), reference_shuffle, route {route}) on the card equals the "
+          f"CPU over {steps} steps to the episode end, all {gpu.num_agents} agents: build_state (model_dump, "
+          f"{entities} visible entities in all), decode_observation, StateHelperCatalog, InMemoryMemoryStore; B1 "
+          f"launches {b1}; {time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    return out
+
+
+def _checked(client, twin, ms: list):
+    """A client policy whose every request is checked against ``twin``, an
+    in-process copy of the served policy; appends each request's host ms to
+    ``ms``."""
+    from mettagrid_tpu_torch.policy.policy import MultiAgentPolicy
+
+    class Checked(MultiAgentPolicy):
+        def reset(self) -> None:
+            client.reset()
+            twin.reset()
+
+        def step_batch(self, raw_observations, raw_actions) -> None:
+            t0 = time.perf_counter()
+            client.step_batch(raw_observations, raw_actions)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            want = np.full_like(raw_actions, -1)
+            twin.step_batch(raw_observations, want)
+            assert np.array_equal(raw_actions, want), f"request {len(ms)}: the served actions differ"
+
+    return Checked()
+
+
+def _policy_servers(torch, card: str):
+    """Phase 43: the JSON and the protobuf policy servers on 127.0.0.1, each
+    serving the lstm policy on the card to a Rollout of the flagship arena
+    on the card, every request checked against an in-process twin."""
+    from mettagrid_tpu_torch.builder import make_arena
+    from mettagrid_tpu_torch.policy import PolicyEnvInterface, TorchMultiAgentPolicy
+    from mettagrid_tpu_torch.runner.policy_server import (
+        LocalPolicyServer,
+        ProtobufPolicyServer,
+        ProtobufRemotePolicy,
+        RemotePolicy,
+    )
+    from mettagrid_tpu_torch.simulator.rollout import Rollout
+
+    t0 = time.perf_counter()
+    cfg = make_arena(24, combat=False)
+    cfg.game.max_steps = 32
+    info = PolicyEnvInterface.from_config(cfg)
+    notes = []
+    for protocol in ("json", "protobuf"):
+        served, twin = (TorchMultiAgentPolicy(info, seed=43, device="cuda") for _ in range(2))
+        for p, q in zip(served.network().parameters(), twin.network().parameters()):
+            assert torch.equal(p, q)
+        _zero_counts()
+        server = LocalPolicyServer(served) if protocol == "json" else ProtobufPolicyServer(served)
+        server.start()
+        try:
+            if protocol == "json":
+                client = RemotePolicy(server.uri)
+            else:
+                client = ProtobufRemotePolicy(server.uri, info, agent_ids=list(range(24)))
+            ms = []
+            rollout = Rollout(cfg, _checked(client, twin, ms), seed=43, device="cuda")
+            T = rollout.simulation.num_observation_tokens
+            result = rollout.run()
+            client.close()
+        finally:
+            server.stop()
+        assert result.steps == 32 and len(ms) == 32
+        assert np.isfinite(result.episode_rewards).all()
+        b1 = _b1_only(f"phase 43, {protocol}")
+        notes.append(f"{protocol}: median {float(np.median(ms)):.3f} ms per request (host clock, {len(ms)} "
+                     f"requests; min {min(ms):.3f}, max {max(ms):.3f}), B1 launches {b1}")
+    print(f"[43] the lstm policy (default widths, seed 43) on the card behind LocalPolicyServer (JSON) and "
+          f"ProtobufPolicyServer (sim.policy_v1) on 127.0.0.1, driving a Rollout of make_arena(24) on the card "
+          f"through RemotePolicy and ProtobufRemotePolicy, 32 steps of 24 agents x {T} tokens: every request's "
+          f"actions equal the in-process twin's; {'; '.join(notes)}; {time.perf_counter() - t0:.1f} s on {card}",
+          flush=True)
+
+
+def _renderers_and_demo(torch, card: str, rendered: dict):
+    """Phase 44: the renderers' output from phase 42 on the card against the
+    CPU; a replay written by a Rollout on the card through the validator and
+    the HTML viewer; the demo in a fresh process; the live viewer serving one
+    client."""
+    import tempfile
+    import zlib
+
+    from mettagrid_tpu_torch.builder import make_arena
+    from mettagrid_tpu_torch.policy import PolicyEnvInterface, RandomMultiAgentPolicy
+    from mettagrid_tpu_torch.renderer.live_viewer import LiveViewer
+    from mettagrid_tpu_torch.renderer.replay_validator import validate_replay
+    from mettagrid_tpu_torch.renderer.replay_viewer import write_viewer
+    from mettagrid_tpu_torch.simulator import Simulation
+    from mettagrid_tpu_torch.simulator.replay_writer import ReplayLogWriter
+    from mettagrid_tpu_torch.simulator.rollout import Rollout
+    from websockets.sync.client import connect
+
+    t0 = time.perf_counter()
+    gpu, cpu = rendered["cuda"], rendered["cpu"]
+    assert gpu["frames"] == cpu["frames"], "the miniscope frames differ"
+    assert gpu["minis"]._out.getvalue() == cpu["minis"]._out.getvalue(), "the miniscope output differs"
+    assert gpu["log"] == cpu["log"] and "=== Episode End ===" in gpu["log"], "the log lines differ"
+    cfg = make_arena(24, combat=False)
+    cfg.game.max_steps = 24
+    _zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        writer = ReplayLogWriter(tmp)
+        info = PolicyEnvInterface.from_config(cfg)
+        result = Rollout(cfg, RandomMultiAgentPolicy(info, seed=44), seed=44, event_handlers=[writer],
+                         device="cuda").run()
+        path = writer.get_written_replay_paths()[0]
+        with open(path, "rb") as f:
+            replay = json.loads(zlib.decompress(f.read()))
+        issues = validate_replay(replay)
+        assert result.steps == 24 and issues == [], issues
+        html = write_viewer(path, f"{tmp}/replay.html").read_text()
+        assert "boot({" in html and len(html) > len(json.dumps(replay, separators=(",", ":")))
+    b1 = _b1_only("phase 44")
+    cmd = [sys.executable, "-m", "mettagrid_tpu_torch.demo", "--steps=16", "--render"]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=sys.path[0] or ".")
+    assert res.returncode == 0, res.stderr[-2000:]
+    demo_line = res.stdout.strip().splitlines()[-1]
+    assert demo_line.startswith("episode finished: steps=16 "), demo_line
+    viewer = LiveViewer(port=0)
+    sim = Simulation(cfg, seed=44, event_handlers=[viewer], device="cuda")
+    try:
+        with connect(viewer.url.replace("http://", "ws://") + "ws", open_timeout=10) as ws:
+            init = json.loads(ws.recv(timeout=10))
+            assert init["type"] == "init" and init["replay"]["version"] == 4
+            sim.step()
+            msg = json.loads(ws.recv(timeout=10))
+            assert msg["type"] == "step" and msg["step"] == 0 and msg["new_objects"]
+    finally:
+        sim.close()
+        viewer.close()
+    print(f"[44] MiniscopeRenderer (ASCII) and LogRenderer on phase 42's Simulations: {len(gpu['frames'])} frames "
+          f"and {len(gpu['log'])} log lines on the card equal the CPU's, string for string; a replay written by a "
+          f"Rollout on the card (24 steps, B1 launches {b1}) passes validate_replay with no issues and replay_viewer "
+          f"wrote its HTML ({len(html)} bytes); python -m mettagrid_tpu_torch.demo --steps=16 --render in a fresh "
+          f"process on the card: {demo_line!r}; LiveViewer served one client its first frame and a step over "
+          f"127.0.0.1; {time.perf_counter() - t0:.1f} s on {card}", flush=True)
+
+
+def _host_apis(torch, card: str):
+    """Phases 41-44: the reference RNG, the SDK, the policy servers, the
+    renderers and the demo on the card."""
+    t0 = time.perf_counter()
+    _reference_rng(torch, card)
+    rendered = _sdk(torch, card)
+    _policy_servers(torch, card)
+    _renderers_and_demo(torch, card, rendered)
+    print(f"[44] phases 41-44 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2211,8 +2533,9 @@ def main() -> int:
     _gpu_vs_cpu(torch, "assembly_lines", 3, 64, 48, 24, cfg=make_cfg("assembly_lines", num_agents=4))
     print("[40] GPU path equals the CPU path on assembly_lines (4 agents, MapGen maps) over 48 steps of 64 envs, "
           "pool of 3 maps, with auto-resets (every output, every state field but rng)", flush=True)
-    print(f"[40] phases 38-40 took {time.perf_counter() - t_mapgen:.1f} s; all phases passed in "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[40] phases 38-40 took {time.perf_counter() - t_mapgen:.1f} s", flush=True)
+    _host_apis(torch, card)
+    print(f"[44] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6a, b6b, b7, b8]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -27,7 +27,7 @@ FORBIDDEN = ("jax", "flax", "optax", "mettagrid_tpu")
 SUBPACKAGES = ("engine", "envs", "simulator", "parity", "policy", "runner", "util", "tools", "parallel", "perf",
                "profiling", "test_support", "demos", "util.tracer", "util.dict_utils", "util.diversity",
                "util.module", "util.uri_resolvers", "parallel.train", "profiling.phase_timing", "mapgen",
-               "mapgen.scenes")
+               "mapgen.scenes", "sdk", "renderer", "renderer.miniscope", "runner.policy_server", "parity.rng")
 
 
 def _forbidden(name: str) -> bool:
@@ -191,6 +191,58 @@ def test_demos_need_a_device_or_cpu(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             demo()
         assert len(demo(device="cpu")) == 1, name
+
+
+def test_host_api_entry_points_need_a_device_or_cpu(monkeypatch):
+    """The demo, the SDK's build_state, the policy servers serving the lstm
+    policy and the renderers on a Simulation or a Rollout raise without CUDA
+    unless asked for the CPU."""
+    import io
+
+    from mettagrid_tpu_torch.builder import make_navigation
+    from mettagrid_tpu_torch.demo import main as demo
+    from mettagrid_tpu_torch.policy import NoopMultiAgentPolicy, TorchMultiAgentPolicy
+    from mettagrid_tpu_torch.renderer import InteractiveMiniscope, LogRenderer, MiniscopeRenderer
+    from mettagrid_tpu_torch.runner.policy_server import LocalPolicyServer, ProtobufPolicyServer
+    from mettagrid_tpu_torch.sdk import build_state
+    from mettagrid_tpu_torch.simulator import Simulation
+    from mettagrid_tpu_torch.simulator.rollout import Rollout
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = make_navigation(2)
+    cfg.game.map_builder.width = cfg.game.map_builder.height = 8
+    cfg.game.max_steps = 2
+    makers = {
+        "demo": lambda **kw: demo(["--steps=2", "--agents=2"] + [f"--device={d}" for d in kw.values()]) == 0,
+        "sdk": lambda **kw: build_state(Simulation(cfg, **kw), 0),
+        "json server": lambda **kw: LocalPolicyServer(TorchMultiAgentPolicy(**kw)),
+        "protobuf server": lambda **kw: ProtobufPolicyServer(TorchMultiAgentPolicy(**kw)),
+        "miniscope": lambda **kw: Simulation(cfg, event_handlers=[MiniscopeRenderer(out=io.StringIO()), LogRenderer()],
+                                             **kw),
+        "interactive miniscope": lambda **kw: Rollout(cfg, NoopMultiAgentPolicy(),
+                                                      renderer=InteractiveMiniscope(out=io.StringIO()), **kw).run(),
+    }
+    for name, make in makers.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+        assert make(device="cpu"), name
+
+
+def test_host_apis_import_no_transport():
+    """Importing the policy servers, the renderers and the SDK pulls in
+    neither websockets nor google.protobuf: the servers, the clients and the
+    live viewer import them when they first need them."""
+    code = (
+        "import sys\n"
+        "import mettagrid_tpu_torch.runner.policy_server, mettagrid_tpu_torch.renderer, mettagrid_tpu_torch.sdk\n"
+        "import mettagrid_tpu_torch.renderer.live_viewer, mettagrid_tpu_torch.demo\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'websockets' or m.startswith('google.protobuf')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
 
 
 def test_api_imports_no_optional_framework():
