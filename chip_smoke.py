@@ -225,7 +225,8 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
     data file, on the card: actions in range, finite logits;
 35. the trainer (parallel.make_train_step) on the card against the CPU: the
     training demo's configuration (navigation, 8 envs x 2 agents, widths
-    32), one set of weights on both by state_dict, 5 steps with the actions
+    32, its random map seeded), one set of weights on both by state_dict, 5
+    steps with the actions
     and agent orders fed from numpy under SGD(lr=0.1): env state and
     observations byte-equal, loss, entropy and reward mean within 1e-4
     relative, parameters and LSTM state within 1e-5; then one update of the
@@ -294,6 +295,31 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
     ``python -m mettagrid_tpu_torch.demo --steps=16 --render`` exits 0 in
     a fresh process on the card; a LiveViewer on the card serves one
     client its first frame and a step.
+45. a one-rank NCCL group on the flagship trainer: init_process_group
+    ("nccl") over a TCP store on 127.0.0.1 with world 1, make_mesh(1),
+    shard_batch of the start, replicate of the policy; make_train_step
+    with mesh= beside the one-device trainer (LSTMPolicy at its default
+    widths, adam(1e-3), 4096 x 24, pool 64, auto-reset, each with its own
+    make_step seeded alike) for 1 + 8 + 16 steps, both fed the actions the
+    one-device policy draws from its generator: every parameter and the
+    metrics bit-equal after every step (under PyTorch's deterministic mode,
+    which fixes the order of the encoder histogram's scatter_add_), the env
+    state and observations equal at the end, B1 launched once per env step
+    of the sharded trainer; then each trainer timed over 16 steps in turns (host clock),
+    the step's reduce part (flatten, all-reduce, division) by CUDA events
+    from its mark hook, and one all-reduce of the flat buffer alone,
+    queued, with its bytes; the group destroyed at the end;
+46. two ranks sharing the card over Gloo: a one-device trainer at 4096 x
+    24 (SGD 0.1, external_perm, agent orders and reset maps from numpy, its
+    own draws) for 8 steps in this process, saved by rig.write_replay; then
+    ``python -m mettagrid_tpu_torch.parallel.rig`` twice with --device
+    cuda --backend gloo --replay, 2048 envs each: the gathered env state
+    and observations equal, the losses within 1e-5 of max(1, |loss|) (the
+    reference rig's bound: the loss crosses 0), the parameters
+    within atol 1e-5 after the 8 steps, B1 launched 8 times in each rank;
+    both ranks exit 0; prints each rank's peak device memory;
+47. dryrun_multichip(1) on CUDA over NCCL: the rig's engine parity and two
+    sharded train steps in a fresh process, which prints RIG_OK rank=0.
 
 In phases 14 and 25 B7's library yardstick (``library_ms``) is one
 torch.gather of the image over a precomputed index of every window word,
@@ -310,11 +336,13 @@ package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -1852,6 +1880,10 @@ def _trainer_gpu_vs_cpu(torch, card: str):
     cfg = make_navigation(A)
     cfg.game.max_steps = 32
     cfg.game.map_builder.width = cfg.game.map_builder.height = 10
+    # Seeded, as the weights and the fed draws are: an unseeded builder draws
+    # a new map each run, and on some maps a loss passes near 0, where the
+    # relative bound below is finer than float32 noise.
+    cfg.game.map_builder.seed = 35
     program = compile_program(cfg)
     init = build_env_init(program, [cfg.game.map_builder.create().build_for_num_agents(A)])
     n = len(program.action_names)
@@ -2419,6 +2451,248 @@ def _host_apis(torch, card: str):
     print(f"[44] phases 41-44 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def _flagship_trainers(torch, program, init, n: int, mesh=None, sgd_lr: float | None = None):
+    """A one-device trainer and, with ``mesh``, a sharded one on the
+    flagship at ENVS x AGENTS, from one seeded LSTMPolicy (default widths)
+    and adam(1e-3) (SGD at ``sgd_lr`` where given), each with its own
+    make_step seeded alike (made with external_perm where there is no
+    mesh). Returns [(policy, train_step, ts)] and the generator of the fed
+    draws."""
+    from mettagrid_tpu_torch.engine import make_reset, make_step
+    from mettagrid_tpu_torch.parallel import TrainState, adam, make_train_step, replicate, shard_batch, \
+        trainable_parameters
+    from mettagrid_tpu_torch.policy import LSTMPolicy
+    from mettagrid_tpu_torch.policy.policy import generators
+    from mettagrid_tpu_torch.tools.bench_run import AGENTS, ENVS
+
+    init_gen, action_gen = generators(n, "cuda")
+    start = LSTMPolicy(len(program.action_names), device="cuda", generator=init_gen).state_dict()
+    state, out = make_reset(program, init, ENVS, device="cuda")(0)
+    trainers = []
+    for m in (None, mesh):
+        policy = LSTMPolicy(len(program.action_names), device="cuda")
+        policy.load_state_dict(start)
+        step = make_step(program, init, auto_reset=True, device="cuda", external_perm=mesh is None)
+        ts_state, obs = (state, out.observations.clone()) if m is None else shard_batch((state, out.observations), m)
+        if m is not None:
+            replicate(policy, m)
+        own = torch.Generator(device="cuda")
+        own.manual_seed(n + 2)
+        ts = TrainState(ts_state, obs, policy.initial_state((obs.shape[0], AGENTS)), own)
+        optimizer = adam(policy, 1e-3) if sgd_lr is None else torch.optim.SGD(trainable_parameters(policy), sgd_lr)
+        trainers.append((policy, make_train_step(program, step, policy, optimizer, mesh=m), ts))
+        if mesh is None:
+            break
+    return trainers, action_gen
+
+
+def _draw(torch, policy, ts, generator):
+    """The actions the policy draws from ``generator`` on ts's observations."""
+    from mettagrid_tpu_torch.policy.policy import sample_actions
+
+    with torch.no_grad():
+        return sample_actions(policy(ts.obs, ts.lstm_state)[0], generator)
+
+
+def _one_rank_nccl(torch, card: str, program, init):
+    """Phase 45: the sharded trainer in a one-rank NCCL group, bit-equal to
+    the one-device trainer at full width; both timed, and the all-reduce."""
+    import torch.distributed as dist
+
+    from mettagrid_tpu_torch.parallel import make_mesh, trainable_parameters
+    from mettagrid_tpu_torch.parallel.dryrun import free_port
+    from mettagrid_tpu_torch.tools.bench_run import ENVS, WARMUP
+
+    kernel = _wrappers()["obs_tail_static_v2"][0]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        (trainers, gen) = _flagship_trainers(torch, program, init, 45, mesh)
+        (p1, one, ts1), (p2, sharded, ts2) = trainers
+        n_steps, launches = 1 + WARMUP + 16, 0
+        _zero_counts()
+        # The encoder's histogram (scatter_add_) sums in no fixed order on the
+        # card; PyTorch's deterministic mode gives it a fixed one, so that two
+        # runs of one function can agree bit for bit. (It warns that cuBLAS
+        # wants CUBLAS_WORKSPACE_CONFIG, which matters only across streams.)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                for i in range(n_steps):
+                    acts = _draw(torch, p1, ts1, gen)
+                    ts1, m1 = one(ts1, actions=acts)
+                    before = kernel.launches
+                    ts2, m2 = sharded(ts2, actions=acts)
+                    launches += kernel.launches - before
+                    assert all(torch.equal(a, b) for a, b in zip(p1.parameters(), p2.parameters())), \
+                        f"step {i}: the one-rank trainer's parameters differ from the one-device trainer's"
+                    assert all(torch.equal(m1[k], m2[k]) for k in m1), f"step {i}: metrics {m1} vs {m2}"
+            finally:
+                torch.use_deterministic_algorithms(False)
+        for name in ts1.env_state._fields:
+            assert torch.equal(getattr(ts1.env_state, name), getattr(ts2.env_state, name)), f"state field {name}"
+        assert torch.equal(ts1.obs, ts2.obs) and bool(torch.isfinite(m2["loss"]))
+        assert launches == n_steps, f"B1 launched {launches} times for {n_steps} env steps of the sharded trainer"
+        _b1_only("phase 45")
+
+        # Both trainers timed in turns, drawing their own actions, after 4
+        # warm-up steps each outside the deterministic mode.
+        runs = {"one device": [one, ts1], "one rank": [sharded, ts2]}
+
+        def run(name: str, n: int) -> float:
+            fn, ts = runs[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                ts, _ = fn(ts)
+            torch.cuda.synchronize()
+            runs[name][1] = ts
+            return (time.perf_counter() - t0) / n * 1e3
+
+        for name in runs:
+            run(name, 4)
+        times = {k: [] for k in runs}
+        for name in ("one device", "one rank", "one rank", "one device"):
+            times[name].append(run(name, 16))
+        # The reduce part by CUDA events from the mark hook.
+        reduce_ms, ts = [], runs["one rank"][1]
+        for _ in range(9):
+            ev = {}
+
+            def mark(part, ev=ev):
+                ev[part] = torch.cuda.Event(enable_timing=True)
+                ev[part].record()
+
+            ts, _ = sharded(ts, mark=mark)
+            reduce_ms.append(ev)
+        torch.cuda.synchronize()
+        reduce_ms = sum(ev["backward"].elapsed_time(ev["reduce"]) for ev in reduce_ms[1:]) / 8
+        numel = sum(p.numel() for p in trainable_parameters(p2)) + 3
+        buf = torch.ones(numel, device="cuda")
+        group = mesh.get_group("data")
+        allreduce_ms = _time_ms(torch, lambda: dist.all_reduce(buf, group=group), 50, queued=True)
+    finally:
+        dist.destroy_process_group()
+    one_ms, rank_ms = (sum(times[k]) / 2 for k in ("one device", "one rank"))
+    print(f"[45] one-rank NCCL group (make_mesh(1), shard_batch, replicate) on the flagship trainer ({ENVS} envs x 24 "
+          f"agents, LSTMPolicy default widths, adam 1e-3): every parameter and metric bit-equal to the one-device "
+          f"trainer after each of {n_steps} steps fed the same draws, env state and observations equal; B1 launched "
+          f"{launches} times for {n_steps} env steps; {rank_ms:.3f} ms per sharded train step against {one_ms:.3f} ms "
+          f"one-device (host clock, 2 x 16 steps each in turns: {[round(t, 3) for t in times['one rank']]} vs "
+          f"{[round(t, 3) for t in times['one device']]}); the step's reduce part (flatten, all-reduce, division) "
+          f"{reduce_ms:.4f} ms (CUDA events, mean of 8 steps); one all-reduce of the flat buffer alone "
+          f"{allreduce_ms:.4f} ms queued (one NCCL rank: no device work), {numel} floats = {numel * 4} bytes, on "
+          f"{card}", flush=True)
+
+
+def _two_gloo_ranks(torch, card: str, program, init):
+    """Phase 46: two rig ranks sharing the card over Gloo replay a one-device
+    training run at full width."""
+    import tempfile
+
+    from mettagrid_tpu_torch.engine.interop import state_to_numpy
+    from mettagrid_tpu_torch.parallel import rig
+    from mettagrid_tpu_torch.parallel.dryrun import fed_draws, spawn_ranks
+    from mettagrid_tpu_torch.policy import params_to_flax
+    from mettagrid_tpu_torch.tools.bench_run import AGENTS, ENVS, POOL
+
+    # SGD: under Adam, float32 noise in gradients near 0 (sums of 2048 rows
+    # and of two ranks against sums of 4096) steers a few components by up
+    # to the learning rate a step, so a 1e-5 bound on the parameters holds
+    # by luck (two runs on an H100 read 1.07e-6 and 9.38e-6 after 8 Adam
+    # steps); SGD moves each by lr times the all-reduced gradient.
+    n_steps, lr = 8, 0.1
+    (trainers, gen) = _flagship_trainers(torch, program, init, 46, sgd_lr=lr)
+    (policy, one, ts), = trainers
+    start = (state_to_numpy(ts.env_state), ts.obs.cpu().numpy().copy(), params_to_flax(policy))
+    rng = np.random.default_rng(46)
+    fed, losses = {"actions": [], "perm": [], "reset_maps": []}, []
+    for _ in range(n_steps):
+        acts = _draw(torch, policy, ts, gen)
+        perm, maps = fed_draws(rng, ENVS, AGENTS, POOL)
+        ts, metrics = one(ts, actions=acts, perm=torch.from_numpy(perm).cuda(),
+                          reset_maps=torch.from_numpy(maps).cuda())
+        for k, v in (("actions", acts.cpu().numpy()), ("perm", perm), ("reset_maps", maps)):
+            fed[k].append(v)
+        losses.append(float(metrics["loss"]))
+    want_state, want_obs = state_to_numpy(ts.env_state), ts.obs.cpu().numpy()
+    want_params = np.concatenate([p.detach().cpu().numpy().ravel() for p in policy.parameters()])
+    del trainers, ts, policy, one
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path_in, path_out = f"{tmp}/in.npz", f"{tmp}/out.npz"
+        rig.write_replay(path_in, state=start[0], obs=start[1], params=start[2], optimizer="sgd", lr=lr,
+                         variant="flagship", **{k: np.stack(v) for k, v in fed.items()})
+        t0 = time.perf_counter()
+        results = spawn_ranks(2, ["--device", "cuda", "--backend", "gloo", "--replay", path_in, "--out", path_out],
+                              timeout=600)
+        ranks_s = time.perf_counter() - t0
+        for r, res in enumerate(results):
+            assert res.returncode == 0 and f"RIG_OK rank={r}" in res.stdout, f"rank {r}:\n{res.stdout[-3000:]}"
+        got = rig.read_result(path_out)
+    for name, want in want_state.items():
+        assert np.array_equal(got["state"][name], want), f"state field {name} differs from the one-device run"
+    assert np.array_equal(got["obs"], want_obs), "observations differ from the one-device run"
+    # The reference rig's bound (tests/test_multiprocess.py): 1e-5 of the
+    # loss, or of 1 where the loss is smaller. A loss is a mean of float32
+    # terms of order 0.1-1 that crosses 0 as the value head learns, so sums
+    # of 2048 rows and of two ranks differ from sums of 4096 by about 1e-7
+    # whatever the loss, which is far more than 1e-5 of a loss near 0.
+    loss_err = [abs(s["loss"] - w) for s, w in zip(got["steps"], losses)]
+    assert all(e <= 1e-5 * max(1.0, abs(w)) for e, w in zip(loss_err, losses)), \
+        f"losses {[s['loss'] for s in got['steps']]} vs {losses}"
+    loss_rel = max(e / abs(w) for e, w in zip(loss_err, losses))
+    param_diff = np.abs(got["rank_params"] - want_params).max(axis=0)
+    param_err = float(param_diff.max())
+    assert param_err <= 1e-5, (f"parameters up to {param_err} from the one-device run's, "
+                               f"{int((param_diff > 1e-5).sum())} past 1e-5")
+    assert got["rank_params"][0].tobytes() == got["rank_params"][1].tobytes(), "the two ranks' parameters differ"
+    assert list(got["rank_launches"]) == [n_steps, n_steps], f"B1 launches per rank {got['rank_launches']}"
+    peaks = [round(int(b) / 2**30, 2) for b in got["rank_peak_bytes"]]
+    print(f"[46] two rig ranks sharing the card over Gloo (--device cuda --backend gloo), {ENVS // 2} envs each of the "
+          f"flagship's {ENVS}, replaying {n_steps} steps of a one-device SGD {lr} trainer (LSTMPolicy default widths): "
+          f"gathered env state and observations equal, losses within {max(loss_err):.3g} (bound 1e-5 of "
+          f"max(1, |loss|); "
+          f"{loss_rel:.3g} relative, smallest |loss| {min(abs(w) for w in losses):.4g}), parameters "
+          f"within {param_err:.3g} (bound 1e-5), both ranks' parameters bit-equal, B1 launched "
+          f"{[int(x) for x in got['rank_launches']]} times; peak device memory per rank {peaks} GiB; the two rank "
+          f"processes took {ranks_s:.1f} s (start, imports, build, replay, gather) on {card}", flush=True)
+
+
+def _dryrun(card: str) -> str:
+    """Phase 47: dryrun_multichip(1) on CUDA over NCCL; returns its line."""
+    from mettagrid_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    out = dryrun_multichip(1)[0]
+    losses = [ln for ln in out.splitlines() if ln.startswith("RIG_LOSSES ")]
+    assert "RIG_OK rank=0" in out and len(losses) == 1, out[-3000:]
+    vals = [float.fromhex(t) for t in losses[0].split()[1:]]
+    assert all(np.isfinite(vals))
+    return (f"[47] dryrun_multichip(1) on CUDA over NCCL in a fresh process: engine parity across the mesh and two "
+            f"sharded train steps (losses {vals}), RIG_OK rank=0; {time.perf_counter() - t0:.1f} s (beside phase 46) "
+            f"on {card}")
+
+
+def _multi_device(torch, card: str):
+    """Phases 45-47: the mesh and the sharded trainer on the card."""
+    from mettagrid_tpu_torch.tools.bench_run import POOL, build_pool, make_cfg
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    program, init = build_pool(make_cfg("flagship"), POOL)
+    _one_rank_nccl(torch, card, program, init)
+    torch.cuda.empty_cache()
+    # Phase 47's rank process runs while phase 46 does: both mostly wait on
+    # processes starting up.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        dryrun = pool.submit(_dryrun, card)
+        _two_gloo_ranks(torch, card, program, init)
+        print(dryrun.result(), flush=True)
+    print(f"[47] phases 45-47 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2535,7 +2809,8 @@ def main() -> int:
           "pool of 3 maps, with auto-resets (every output, every state field but rng)", flush=True)
     print(f"[40] phases 38-40 took {time.perf_counter() - t_mapgen:.1f} s", flush=True)
     _host_apis(torch, card)
-    print(f"[44] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    _multi_device(torch, card)
+    print(f"[47] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6a, b6b, b7, b8]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -207,10 +207,20 @@ def as_tokens(raw_observations, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(raw_observations, dtype=torch.uint8, device=device)
 
 
-def sample_actions(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def sample_actions(logits: torch.Tensor, generator: torch.Generator,
+                   shard: tuple[int, int] | None = None) -> torch.Tensor:
     """One categorical draw per row of logits (the Gumbel-max trick:
-    argmax(logits - log E) with E ~ Exp(1)), as int32."""
-    noise = torch.empty_like(logits).exponential_(generator=generator)
+    argmax(logits - log E) with E ~ Exp(1)), as int32. With ``shard`` =
+    (index, count) the logits are part ``index`` of ``count`` equal parts of
+    a batch along the first axis: the noise is drawn for the whole batch and
+    this part of it taken, so that the draws equal that batch's draw."""
+    if shard is None:
+        noise = torch.empty_like(logits).exponential_(generator=generator)
+    else:
+        index, count = shard
+        E = logits.shape[0]
+        noise = logits.new_empty((count * E,) + logits.shape[1:]).exponential_(generator=generator)
+        noise = noise[index * E:(index + 1) * E]
     return (logits - noise.log()).argmax(dim=-1).to(torch.int32)
 
 

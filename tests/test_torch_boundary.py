@@ -27,7 +27,8 @@ FORBIDDEN = ("jax", "flax", "optax", "mettagrid_tpu")
 SUBPACKAGES = ("engine", "envs", "simulator", "parity", "policy", "runner", "util", "tools", "parallel", "perf",
                "profiling", "test_support", "demos", "util.tracer", "util.dict_utils", "util.diversity",
                "util.module", "util.uri_resolvers", "parallel.train", "profiling.phase_timing", "mapgen",
-               "mapgen.scenes", "sdk", "renderer", "renderer.miniscope", "runner.policy_server", "parity.rng")
+               "mapgen.scenes", "sdk", "renderer", "renderer.miniscope", "runner.policy_server", "parity.rng",
+               "parallel.mesh", "parallel.dryrun", "parallel.rig")
 
 
 def _forbidden(name: str) -> bool:
@@ -226,6 +227,30 @@ def test_host_api_entry_points_need_a_device_or_cpu(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
         assert make(device="cpu"), name
+
+
+def test_parallel_entry_points_need_a_device_or_cpu(monkeypatch):
+    """make_mesh and dryrun_multichip raise without CUDA unless asked for the
+    CPU, before any rank starts; the rig run as ``python -m`` without
+    --device exits non-zero naming CUDA and prints no RIG_OK."""
+    import torch.distributed as dist
+
+    from mettagrid_tpu_torch.parallel import make_mesh
+    from mettagrid_tpu_torch.parallel.dryrun import dryrun_multichip, free_port
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multichip(2)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_mesh()
+        assert make_mesh(device="cpu").device_type == "cpu"
+    finally:
+        dist.destroy_process_group()
+    res = subprocess.run([sys.executable, "-m", "mettagrid_tpu_torch.parallel.rig", "0", "1", str(free_port())],
+                         cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0 and "CUDA" in res.stderr and "RIG_OK" not in res.stdout, res
 
 
 def test_host_apis_import_no_transport():
