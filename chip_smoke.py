@@ -319,7 +319,32 @@ toolkit. It builds the port's kernels from the sources in the checkout, then:
     within atol 1e-5 after the 8 steps, B1 launched 8 times in each rank;
     both ranks exit 0; prints each rank's peak device memory;
 47. dryrun_multichip(1) on CUDA over NCCL: the rig's engine parity and two
-    sharded train steps in a fresh process, which prints RIG_OK rank=0.
+    sharded train steps in a fresh process, which prints RIG_OK rank=0;
+48. the cross-engine scenarios (tests/torch_parity_scenarios.SCENARIOS,
+    the 18 of the JAX package's tests/test_cross_engine_parity.py, one per
+    seed of its many-seeds layout: 21) through parity.cross_engine.run_ours
+    on the card, each from the counts at 0: its trace has no diff_traces
+    problem against the CPU's (every step's success, positions,
+    inventories, observation tokens where compared, the final objects,
+    rewards and episode stats), and it launched a kernel; prints each
+    scenario's route and launches. A line first says that the comparison
+    with the reference C++ engine was not run where its oracle is not built
+    (parity.reference_oracle.reference_available); where it is, each trace
+    is also held to parity.cross_engine.run_reference;
+49. the seven arena families (ARENA_FAMILIES there: plain 500 steps,
+    combat 500, economy 400, events 300, tithe 300, direct-attack 300,
+    event-filter 200, each at the JAX test's first seeds, 24 agents, on
+    parity.arena.arena_map's map) through parity.arena.run_arena_ours on
+    the card, each from the counts at 0: the checkpoints, observation
+    tokens, final summary, route and episode signature equal the CPU's, no
+    engagement check fires; prints the route, each kernel's launches, the
+    signature and ms per step (one env, so the host's pace); where the
+    oracle is built, parity.arena.run_arena_parity on the card finds no
+    problem. The CPU side of phases 48 and 49 runs in a process of its own
+    while the card's runs;
+50. each kernel that phases 48-49 launched (B1, B2, B7 and B8) against its
+    plain version on the live state after 24 steps of the first family that
+    launched it, timed, with its bound.
 
 In phases 14 and 25 B7's library yardstick (``library_ms``) is one
 torch.gather of the image over a precomputed index of every window word,
@@ -329,7 +354,8 @@ index build is not timed); the port never calls it.
 Every phase asserts. The line before the last is the kernels' JSON record;
 a kernel's other cells ride in its entry under their names (B1's
 "assembly_lines", B2's "network", B3's "bsp_arena", B7's and B8's
-"full_combat"), each with the entry's keys. The last line is
+"full_combat", and "parity" for the kernels of phases 48-50, whose
+launches are those of phases 48-49), each with the entry's keys. The last line is
 {"ok": true, "device": {...}}. With no CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -2693,6 +2719,171 @@ def _multi_device(torch, card: str):
     print(f"[47] phases 45-47 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def _parity_data():
+    """tests/torch_parity_scenarios.py beside this script (the scenarios and
+    families the port's CPU tests hold to the JAX package), loaded by path."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_parity_scenarios.py")
+    spec = importlib.util.spec_from_file_location("torch_parity_scenarios", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _parity_runs(device: str) -> dict:
+    """Each scenario's run_ours and each family's run_arena_ours on
+    ``device``, with the kernels each launched (the counts set to 0 just
+    before each run and read just after)."""
+    import torch
+
+    from mettagrid_tpu_torch.parity import arena, cross_engine
+
+    if device == "cpu":
+        torch.set_num_threads(4)
+    data = _parity_data()
+    out = {}
+    for name, sc in data.SCENARIOS.items():
+        out[("scenario", name)] = _launched(lambda: cross_engine.run_ours(sc, device=device))
+    for name, (family, steps, (map_seed, action_seed)) in data.ARENA_FAMILIES.items():
+        map_data = arena.arena_map(24, map_seed)
+        out[("family", name)] = _launched(
+            lambda: arena.run_arena_ours(map_data, action_seed, steps, device=device, **family))
+    return out
+
+
+def _launched(run):
+    """run() with every launch count at 0 just before it; returns its result
+    and {kernel: launches} of the kernels it launched."""
+    _zero_counts()
+    out = run()
+    return out, {name: k.launches for name, (k, _) in _wrappers().items() if k.launches}
+
+
+def _launch_text(launches: dict) -> str:
+    return ", ".join(f"{_KERNELS[k][1]} {n}" for k, n in launches.items())
+
+
+def _cross_engine_scenarios(gpu: dict, cpu: dict, oracle: bool, launched: dict):
+    """Phase 48: each cross-engine scenario's run_ours on the card against
+    the CPU's, and against the reference C++ engine where it is built."""
+    from mettagrid_tpu_torch.parity import cross_engine
+
+    scenarios = _parity_data().SCENARIOS
+    for name, sc in scenarios.items():
+        (trace, launches), (ref, cpu_launches) = gpu[("scenario", name)], cpu[("scenario", name)]
+        problems = cross_engine.diff_traces(trace, ref)
+        assert not problems, f"{name}: " + "\n".join(problems)
+        assert trace["route"] == ref["route"] and not cpu_launches
+        assert ("obs" in trace["steps"][0]) == sc.compare_obs
+        assert launches, f"{name}: no kernel launched on the card"
+        if oracle:
+            problems = cross_engine.diff_traces(trace, cross_engine.run_reference(sc))
+            assert not problems, f"{name} against the C++ engine: " + "\n".join(problems)
+        for k, n in launches.items():
+            launched.setdefault(k, []).append(("scenario", name, n))
+        print(f"[48] {name}: {trace['route']} route, launched {_launch_text(launches)}; the card's trace equals the "
+              f"CPU's over {len(sc.scripts)} steps{' with observation tokens' if sc.compare_obs else ''}"
+              f"{' and the C++ engine' if oracle else ''}", flush=True)
+    print(f"[48] {len(scenarios)} cross-engine scenarios on the card equal the CPU", flush=True)
+
+
+def _arena_families(card: str, gpu: dict, cpu: dict, oracle: bool, launched: dict):
+    """Phase 49: each arena family's run_arena_ours on the card against the
+    CPU's at its step count, and run_arena_parity where the oracle is built."""
+    from mettagrid_tpu_torch.parity import arena
+
+    families = _parity_data().ARENA_FAMILIES
+    for name, (family, steps, (map_seed, action_seed)) in families.items():
+        (result, launches), (ref, cpu_launches) = gpu[("family", name)], cpu[("family", name)]
+        problems = arena.diff_arena(result, ref, 24)
+        assert not problems, f"{name}: " + "\n".join(problems[:20])
+        for key in ("actions", "checkpoints", "obs", "final", "route", "signature"):
+            assert result[key] == ref[key], f"{name}: {key} differs between the card and the CPU"
+        assert launches and not cpu_launches, f"{name}: no kernel launched on the card"
+        if oracle:
+            problems = arena.run_arena_parity(map_seed, action_seed, steps, device="cuda", **family)
+            assert not problems, f"{name} against the C++ engine: " + "\n".join(problems[:20])
+        for k, n in launches.items():
+            launched.setdefault(k, []).append(("family", name, n))
+        print(f"[49] {name} ({steps} steps, map seed {map_seed}, action seed {action_seed}, 24 agents): "
+              f"{result['route']} route, launched {_launch_text(launches)}; checkpoints, observations and the final "
+              f"summary equal the CPU's, no engagement problem; signature {result['signature']} on both; "
+              f"{result['seconds'] / steps * 1e3:.3f} ms per step on the card (one env, host-bound, host clock with "
+              f"the checkpoint reads) against {ref['seconds'] / steps * 1e3:.3f} on the CPU, on {card}", flush=True)
+    print(f"[49] {len(families)} arena families on the card equal the CPU", flush=True)
+
+
+def _parity_kernels(torch, card: str, launched: dict) -> dict:
+    """Phase 50: each kernel that phases 48-49 launched against its plain
+    version on the live state after 24 steps of the first family that
+    launched it. Returns {kernel: figures} with the launches of phases
+    48-49."""
+    from mettagrid_tpu_torch.parity import arena
+
+    families = _parity_data().ARENA_FAMILIES
+    figures = {}
+    for kname in [k for k in _KERNELS if k in launched]:
+        if kname in figures:
+            continue
+        runs = [r for r in launched[kname] if r[0] == "family"]
+        label = _KERNELS[kname][1]
+        assert runs, f"{label} launched by the scenarios only"
+        name = runs[0][1]
+        family, _, (map_seed, action_seed) = families[name]
+        sim = arena.arena_simulation(arena.arena_map(24, map_seed), action_seed, 24, "cuda", **family)
+        for row in arena.family_script(sim, action_seed, 24, **family):
+            for i, action in enumerate(row):
+                sim.agent(i).set_action(action)
+            sim.step()
+        fn = sim._step_fn.obs_fn
+        if kname in ("window_slices", "compact_rows"):
+            b7, b8, shapes = _nonfused_records(torch, fn, sim.state)
+            new = {"window_slices": b7, "compact_rows": b8}
+            print(f"[50] B7 and B8 equal to their plain versions on the {name} family's state after 24 steps "
+                  f"{shapes}: B7 {_times(b7)}; B8 {_times(b8)} on {card}", flush=True)
+        else:
+            assert fn.tail.__name__ == kname, f"{name} routes to {fn.tail.__name__}"
+            rec = _tail_record(torch, fn, sim.state)
+            new = {kname: rec}
+            print(f"[50] {label} equal to its plain version on the {name} family's state after 24 steps: "
+                  f"{_times(rec)} on {card}", flush=True)
+        for k, rec in new.items():
+            figures[k] = {"launches": sum(r[2] for r in launched.get(k, [])),
+                          **{f: rec[f] for f in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+    return figures
+
+
+def _parity_phases(torch, card: str) -> dict:
+    """Phases 48-50: the parity runs on the card. Their CPU side runs in
+    a process of its own meanwhile."""
+    import multiprocessing
+
+    from mettagrid_tpu_torch.parity.reference_oracle import reference_available
+
+    t0 = time.perf_counter()
+    oracle = reference_available()
+    if not oracle:
+        print("[48] the comparison with the reference C++ engine was not run: its oracle "
+              "(build/reference/mettagrid_c.so, built by scripts/build_reference_oracle.sh from the reference's "
+              "sources at build/reference/src) is not in this checkout; phases 48-49 hold the card to the CPU", flush=True)
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cpu_side = pool.submit(_parity_runs, "cpu")
+        gpu = _parity_runs("cuda")
+        t_gpu = time.perf_counter() - t0
+        cpu = cpu_side.result()
+    print(f"[48] the card's runs of phases 48-49 took {t_gpu:.1f} s, the CPU's (in a process of its own, "
+          f"meanwhile) {time.perf_counter() - t0:.1f} s from the start", flush=True)
+    launched: dict = {}
+    _cross_engine_scenarios(gpu, cpu, oracle, launched)
+    _arena_families(card, gpu, cpu, oracle, launched)
+    torch.cuda.empty_cache()
+    figures = _parity_kernels(torch, card, launched)
+    print(f"[50] phases 48-50 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return figures
+
+
 def main() -> int:
     import torch
 
@@ -2810,7 +3001,10 @@ def main() -> int:
     print(f"[40] phases 38-40 took {time.perf_counter() - t_mapgen:.1f} s", flush=True)
     _host_apis(torch, card)
     _multi_device(torch, card)
-    print(f"[47] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
+    records = dict(zip(_KERNELS, (b1, b2, b3, b4, b5, b6a, b6b, b7, b8)))
+    for kname, figures in _parity_phases(torch, card).items():
+        records[kname]["parity"] = figures
+    print(f"[50] all phases passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": [b1, b2, b3, b4, b5, b6a, b6b, b7, b8]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -42,10 +42,10 @@ and those of the v3 tails and of the reference-RNG step:
   wall_mood event (scripts/verify_tpu_obs.py:57-70: ChangeVibe to angry on
   up to 2 walls every 3 steps), so a mutable background: kernel B2 under
   ``"auto"``, kernel B6b under ``"v3"``;
-* ``tithe_rrng``: the reference's "tithe" parity family
-  (mettagrid_tpu/parity/arena.py:111-282: eight reachable walls become
-  shrines, the enrich event gives 3 of them a heart at steps 10, 35, ...,
-  and bump-using a shrine pays the actor 1 ore_red when two shrines picked
+* ``tithe_rrng``: the reference's "tithe" parity family (parity/arena.py,
+  events=True and random_query=True: eight reachable walls become shrines,
+  the enrich event gives 3 of them a heart at steps 10, 35, ..., and
+  bump-using a shrine pays the actor 1 ore_red when two shrines picked
   by an order_by=random query hold a heart between them) stepped with
   ``reference_rng=True``: the MT19937 twin draws the agent order, the
   event's shuffles and the query's picks, and the action phase is
@@ -54,7 +54,7 @@ and those of the v3 tails and of the reference-RNG step:
 and the full-combat family:
 
 * ``full_combat``: the reference's own full-combat parity family
-  (mettagrid_tpu/parity/arena.py:368-406, 598-604, 627-644): the combat
+  (parity/arena.py, combat=True, its loadouts and script): the combat
   arena with change_vibe and three move handlers, ``shield_break`` (an
   angry actor takes one armor from a shielding target), ``melee`` (an angry
   actor loots one ore_red, then hits with DirectAttack) and ``bump_swap``
@@ -112,6 +112,13 @@ from mettagrid_tpu_torch.builder import make_arena
 from mettagrid_tpu_torch.config.game_value import InventoryValue
 from mettagrid_tpu_torch.engine import build_env_init, compile_program, make_reset, make_step
 from mettagrid_tpu_torch.maps.random_map import RandomMapBuilder
+from mettagrid_tpu_torch.parity.arena import (
+    COMBAT_PRIMARY_SHARE,
+    COMBAT_VIBES,
+    rename_walls,
+    apply_family,
+    combat_loadout,
+)
 
 AGENTS = 24
 ENVS = 4096
@@ -122,9 +129,6 @@ VARIANTS = (
     "flagship_v3", "arena_mood", "arena_mood_v3", "tithe_rrng", "full_combat", "network", "assembly_lines",
     "bsp_arena",
 )
-# The vibes the full-combat script picks, and how often (parity/arena.py:627-644).
-FULL_COMBAT_VIBES = ("angry", "shield", "clown", "default")
-FULL_COMBAT_VIBE_SHARE = 0.4
 # Shrines of the tithe family, renamed from reachable walls of each map.
 TITHE_SHRINES = 8
 
@@ -242,95 +246,22 @@ def make_mood_cfg(num_agents: int):
 
 
 def make_tithe_cfg(num_agents: int):
-    """The tithe family (mettagrid_tpu/parity/arena.py:111-282 with
-    events=True, random_query=True): shrine objects, whose on_use handler
-    pays the actor 1 ore_red when two shrines picked at random
+    """The tithe family (parity/arena.py with events=True,
+    random_query=True) on the flagship arena: shrine objects, whose on_use
+    handler pays the actor 1 ore_red when two shrines picked at random
     (order_by=random, max_items=2) hold at least one heart, and the enrich
     event that gives 3 shrines a heart at steps 10, 35, ..., 485. The
     shrines themselves are renamed walls (build_pool)."""
-    from mettagrid_tpu_torch.config.event_config import EventConfig
-    from mettagrid_tpu_torch.config.game_config import GridObjectConfig
-    from mettagrid_tpu_torch.config.game_value import QueryInventoryValue
-    from mettagrid_tpu_torch.config.handler_config import (
-        EntityTarget,
-        GameValueFilter,
-        Handler,
-        HandlerTarget,
-        ResourceDeltaMutation,
-        updateTarget,
-    )
-    from mettagrid_tpu_torch.config.query import Query
-    from mettagrid_tpu_torch.config.tag import typeTag
-
-    cfg = make_arena(num_agents, combat=False)
-    cfg.game.objects["shrine"] = GridObjectConfig(
-        name="shrine", map_name="shrine",
-        on_use_handler=Handler(
-            name="tithe",
-            filters=[GameValueFilter(
-                target=HandlerTarget.ACTOR,
-                value=QueryInventoryValue(
-                    query=Query(source=typeTag("shrine"), order_by="random", max_items=2).model_dump(),
-                    item="heart",
-                ),
-                min=1,
-            )],
-            mutations=[ResourceDeltaMutation(target=EntityTarget.ACTOR, deltas={"ore_red": 1})],
-        ),
-    )
-    cfg.game.events = {
-        "enrich": EventConfig(
-            name="enrich", target_query=typeTag("shrine"), timesteps=list(range(10, 501, 25)), max_targets=3,
-            mutations=[updateTarget({"heart": 1})],
-        )
-    }
-    return cfg
+    return apply_family(make_arena(num_agents, combat=False), events=True, random_query=True)
 
 
 def make_full_combat_cfg(num_agents: int):
-    """The full-combat parity family (parity/arena.py:368-406): make_arena
-    with change_vibe and the shield_break, melee and bump_swap move handlers,
-    full_token_bounds on because the loadouts are written into the maps'
-    initial inventories (full_combat_loadouts) as the family sets them on
-    the host."""
-    from mettagrid_tpu_torch.config.action_config import ChangeVibeActionConfig
-    from mettagrid_tpu_torch.config.handler_config import (
-        DirectAttackMutation,
-        EntityTarget,
-        Handler,
-        HandlerTarget,
-        ResourceDeltaMutation,
-        ResourceTransferMutation,
-        SwapMutation,
-        VibeFilter,
-    )
-
-    cfg = make_arena(num_agents)
-    cfg.game.actions.change_vibe = ChangeVibeActionConfig()
-    cfg.game.actions.move.handlers = [
-        Handler(
-            name="shield_break",
-            filters=[VibeFilter(target=HandlerTarget.ACTOR, vibe="angry"),
-                     VibeFilter(target=HandlerTarget.TARGET, vibe="shield")],
-            mutations=[ResourceDeltaMutation(target=EntityTarget.TARGET, deltas={"armor": -1})],
-        ),
-        Handler(
-            name="melee",
-            filters=[VibeFilter(target=HandlerTarget.ACTOR, vibe="angry")],
-            mutations=[
-                ResourceTransferMutation(from_target=EntityTarget.TARGET, to_target=EntityTarget.ACTOR,
-                                         resources={"ore_red": 1}),
-                DirectAttackMutation(weapon_resource="laser", armor_resource="armor", health_resource="heart"),
-            ],
-        ),
-        Handler(
-            name="bump_swap",
-            filters=[VibeFilter(target=HandlerTarget.ACTOR, vibe="clown")],
-            mutations=[SwapMutation()],
-        ),
-    ]
-    cfg.game.obs.full_token_bounds = True
-    return cfg
+    """The full-combat parity family (parity/arena.py with combat=True):
+    make_arena with change_vibe and the shield_break, melee and bump_swap
+    move handlers, full_token_bounds on because the loadouts are written
+    into the maps' initial inventories (full_combat_loadouts) as the family
+    sets them on the host."""
+    return apply_family(make_arena(num_agents), combat=True)
 
 
 def make_network_cfg(num_agents: int):
@@ -383,32 +314,32 @@ def make_network_cfg(num_agents: int):
 
 def full_combat_loadouts(program, obj_inv: np.ndarray) -> np.ndarray:
     """A copy of the pooled initial inventories int32[P, N, R] in which
-    agent i holds {laser: 3 + i % 3, armor: i % 4, heart: 30, ore_red:
-    2 + i % 2} (parity/arena.py:598-604)."""
+    agent i holds the family's loadout (parity/arena.combat_loadout: laser
+    3 + i % 3, armor i % 4, heart 30, ore_red 2 + i % 2)."""
     out = np.array(obj_inv, copy=True)
     rid = {n: i for i, n in enumerate(program.resource_names)}
     for i in range(program.num_agents):
-        for name, amount in (("laser", 3 + i % 3), ("armor", i % 4), ("heart", 30), ("ore_red", 2 + i % 2)):
+        for name, amount in combat_loadout(i).items():
             out[:, i, rid[name]] = amount
     return out
 
 
 def full_combat_action_ids(program):
     """The full-combat script's primary actions (noop and the four moves) and
-    vibe actions (FULL_COMBAT_VIBES), as action indices."""
+    vibe actions (parity/arena.COMBAT_VIBES), as action indices."""
     names = program.action_names
-    prim = [i for i, n in enumerate(names) if n == "noop" or n.startswith("move_")]
-    return prim, [names.index(f"change_vibe_{v}") for v in FULL_COMBAT_VIBES]
+    prim = [i for i, n in enumerate(names) if not n.startswith("change_vibe_")]
+    return prim, [names.index(f"change_vibe_{v}") for v in COMBAT_VIBES]
 
 
 def full_combat_actions(program, generator, shape, device):
     """One step's (primary, vibe) actions of the full-combat script, drawn
     on ``device``: primary uniform over noop and the four moves; vibe one of
-    FULL_COMBAT_VIBES with probability FULL_COMBAT_VIBE_SHARE, else noop (no
-    vibe change)."""
+    COMBAT_VIBES with probability 1 - COMBAT_PRIMARY_SHARE, else noop (no
+    vibe change), as parity/arena.action_script picks them."""
     prim, focus = (torch.tensor(ids, dtype=torch.int32, device=device) for ids in full_combat_action_ids(program))
     acts = prim[torch.randint(0, len(prim), shape, generator=generator, device=device)]
-    pick = torch.rand(shape, generator=generator, device=device) < FULL_COMBAT_VIBE_SHARE
+    pick = torch.rand(shape, generator=generator, device=device) < 1 - COMBAT_PRIMARY_SHARE
     vibes = torch.where(pick, focus[torch.randint(0, len(focus), shape, generator=generator, device=device)], 0)
     return acts, vibes
 
@@ -418,27 +349,8 @@ def full_combat_script(program, rng: np.random.Generator, shape):
     feed one script to two engines or devices."""
     prim, focus = (np.array(ids) for ids in full_combat_action_ids(program))
     acts = prim[rng.integers(0, len(prim), shape)].astype(np.int32)
-    vibes = np.where(rng.random(shape) < FULL_COMBAT_VIBE_SHARE, focus[rng.integers(0, len(focus), shape)], 0)
+    vibes = np.where(rng.random(shape) < 1 - COMBAT_PRIMARY_SHARE, focus[rng.integers(0, len(focus), shape)], 0)
     return acts, vibes.astype(np.int32)
-
-
-def rename_walls(grid, names):
-    """A copy of map grid ``grid`` whose interior walls with an empty
-    orthogonal neighbour (those agents can bump), taken in raster order at a
-    stride that spreads them over the map, are renamed to ``names``
-    (mettagrid_tpu/parity/arena.py:39-66, reachable=True)."""
-    out = np.array(grid, copy=True)
-    H, W = out.shape
-    cands = [
-        (r, c) for r in range(1, H - 1) for c in range(1, W - 1)
-        if out[r, c] == "wall" and any(out[r + dr, c + dc] == "empty" for dr, dc in ((1, 0), (-1, 0), (0, 1), (0, -1)))
-    ]
-    if len(cands) < len(names):
-        raise ValueError(f"only {len(cands)} reachable walls for {len(names)} names")
-    stride = max(1, len(cands) // len(names))
-    for i, name in enumerate(names):
-        out[cands[i * stride]] = name
-    return out
 
 
 def variant_options(variant: str) -> dict:
@@ -509,8 +421,9 @@ def build_pool(cfg, pool: int, max_steps: int | None = None, loadouts: bool = Fa
     """(program, init) of ``cfg`` with ``pool`` maps from its map builder,
     seeded from np.random.default_rng(0) as bench.py:103-108 seeds them. A
     config with shrine objects gets TITHE_SHRINES of each map's walls
-    renamed to shrines (rename_walls); ``loadouts`` writes the full-combat
-    loadouts into the maps' initial inventories (full_combat_loadouts)."""
+    renamed to shrines (parity/arena.rename_walls); ``loadouts`` writes the
+    full-combat loadouts into the maps' initial inventories
+    (full_combat_loadouts)."""
     if max_steps is not None:
         cfg.game.max_steps = max_steps
     program = compile_program(cfg)
@@ -521,7 +434,7 @@ def build_pool(cfg, pool: int, max_steps: int | None = None, loadouts: bool = Fa
         builder.config.seed = int(rng.integers(0, 2**31 - 1))
         game_map = builder.build_for_num_agents(program.num_agents)
         if "shrine" in cfg.game.objects:
-            game_map.grid = rename_walls(game_map.grid, ["shrine"] * TITHE_SHRINES)
+            game_map.grid = rename_walls(game_map.grid, ["shrine"] * TITHE_SHRINES, reachable=True)
         maps.append(game_map)
     init = build_env_init(program, maps)
     if loadouts:

@@ -1,6 +1,7 @@
 """Deterministic episode signature.
 
     python -m mettagrid_tpu_torch.tools.episode_signature [--seed=0] [--steps=64] [--device=cpu]
+    python -m mettagrid_tpu_torch.tools.episode_signature --cross-engine [--seeds=0,3,11] [--steps=500] [--device=cpu]
 
 Runs a fixed-seed episode of the arena with 4 agents on a 12x12 random map
 (border 1, 6 walls), with random actions from np.random.default_rng(seed),
@@ -10,12 +11,20 @@ tests/simulator/test_deterministic_signature.py). It is the twin of the
 default mode of the JAX package's scripts/deterministic_episode_signature.py,
 but not of its hash: this engine draws the agent orders from a
 torch.Generator seeded with the seed, where the JAX engine draws them from
-its threefry key. Its cross-engine mode, which needs the C++ reference
-engine, has no twin here. The device is CUDA unless --device names another.
+its threefry key. The device is CUDA unless --device names another.
+
+--cross-engine runs the make_arena(24) preset in this engine and in the
+reference C++ engine (the oracle that scripts/build_reference_oracle.sh
+builds) for --steps steps (500 unless given) under reproduced MT19937 agent
+shuffling, one episode per map seed of --seeds with action seed
+7 * seed + 42 (parity/arena.run_arena_parity), and prints a JSON verdict:
+the twin of the JAX script's cross-engine mode. It exits 0 on a match, 1 on
+a mismatch, and 2 with {"error": ...} when the oracle is not built.
 """
 
 from __future__ import annotations
 
+import json
 import sys
 
 import numpy as np
@@ -55,19 +64,53 @@ def signature(seed: int = 0, steps: int = 64, device=None) -> str:
     return episode_signature(program, state)
 
 
+def cross_engine(seeds, steps: int, device=None) -> int:
+    """Arena-scale signature parity against the reference C++ engine; prints
+    the JSON verdict and returns the exit code."""
+    from mettagrid_tpu_torch.parity.arena import run_arena_parity
+    from mettagrid_tpu_torch.parity.reference_oracle import HOW_TO_BUILD, reference_available
+
+    dev = resolve_device(device)
+    if not reference_available():
+        print(json.dumps({"error": f"reference oracle not built ({HOW_TO_BUILD})"}))
+        return 2
+    results = {seed: run_arena_parity(seed, seed * 7 + 42, steps=steps, device=dev) for seed in seeds}
+    ok = all(not p for p in results.values())
+    print(
+        json.dumps(
+            {
+                "match": ok,
+                "preset": "make_arena(24)",
+                "steps": steps,
+                "seeds": list(seeds),
+                "problems": {s: p[:5] for s, p in results.items() if p},
+            }
+        )
+    )
+    return 0 if ok else 1
+
+
 def main(argv=None) -> None:
-    seed, steps, device = 0, 64, None
+    seed, steps, device = 0, None, None
+    seeds = [0, 3, 11]
+    xengine = False
     for arg in sys.argv[1:] if argv is None else argv:
         k, _, v = arg.partition("=")
         if k == "--seed":
             seed = int(v)
         elif k == "--steps":
             steps = int(v)
+        elif k == "--seeds":
+            seeds = [int(x) for x in v.split(",")]
+        elif k == "--cross-engine":
+            xengine = True
         elif k == "--device":
             device = v
         else:
             raise SystemExit(f"unknown argument {arg!r}")
-    print(signature(seed, steps, device))
+    if xengine:
+        sys.exit(cross_engine(seeds, 500 if steps is None else steps, device))
+    print(signature(seed, 64 if steps is None else steps, device))
 
 
 if __name__ == "__main__":

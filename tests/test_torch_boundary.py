@@ -10,6 +10,7 @@ the reference-RNG step refuses draws fed from outside.
 """
 
 import ast
+import json
 import pathlib
 import subprocess
 import sys
@@ -28,7 +29,8 @@ SUBPACKAGES = ("engine", "envs", "simulator", "parity", "policy", "runner", "uti
                "profiling", "test_support", "demos", "util.tracer", "util.dict_utils", "util.diversity",
                "util.module", "util.uri_resolvers", "parallel.train", "profiling.phase_timing", "mapgen",
                "mapgen.scenes", "sdk", "renderer", "renderer.miniscope", "runner.policy_server", "parity.rng",
-               "parallel.mesh", "parallel.dryrun", "parallel.rig")
+               "parallel.mesh", "parallel.dryrun", "parallel.rig", "parity.cross_engine", "parity.arena",
+               "parity.reference_oracle")
 
 
 def _forbidden(name: str) -> bool:
@@ -251,6 +253,46 @@ def test_parallel_entry_points_need_a_device_or_cpu(monkeypatch):
     res = subprocess.run([sys.executable, "-m", "mettagrid_tpu_torch.parallel.rig", "0", "1", str(free_port())],
                          cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode != 0 and "CUDA" in res.stderr and "RIG_OK" not in res.stdout, res
+
+
+def test_parity_entry_points_need_a_device_or_cpu(monkeypatch):
+    """The parity runs' halves on this engine (run_ours, run_arena_ours)
+    and the signature tool's cross-engine mode raise without CUDA unless
+    asked for the CPU."""
+    from mettagrid_tpu_torch.parity import arena, cross_engine
+    from mettagrid_tpu_torch.parity.reference_oracle import reference_available
+    from mettagrid_tpu_torch.tools import episode_signature
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sc = cross_engine.Scenario(map_data=[["wall"] * 3, ["wall", "agent.agent", "wall"], ["wall"] * 3], num_agents=1,
+                               scripts=[["noop"]])
+    map_data = arena.arena_map(24, 0)
+    makers = {
+        "run_ours": lambda **kw: cross_engine.run_ours(sc, **kw),
+        "run_arena_ours": lambda **kw: arena.run_arena_ours(map_data, 0, steps=2, **kw),
+    }
+    for name, make in makers.items():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+        assert make(device="cpu")["final"]["objects"], name
+    with pytest.raises(RuntimeError, match="CUDA"):
+        episode_signature.cross_engine([0], 2)
+    if not reference_available():
+        assert episode_signature.cross_engine([0], 2, device="cpu") == 2
+
+
+def test_cross_engine_tool_without_oracle():
+    """``episode_signature --cross-engine --device=cpu`` exits 2 with an
+    error JSON where the reference oracle is not built."""
+    from mettagrid_tpu_torch.parity.reference_oracle import reference_available
+
+    if reference_available():
+        pytest.skip("reference oracle built: the tool runs the comparison")
+    res = subprocess.run([sys.executable, "-m", "mettagrid_tpu_torch.tools.episode_signature", "--cross-engine",
+                          "--device=cpu"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 2, res.stderr
+    verdict = json.loads(res.stdout.strip().splitlines()[-1])
+    assert set(verdict) == {"error"} and "reference oracle not built" in verdict["error"]
 
 
 def test_host_apis_import_no_transport():

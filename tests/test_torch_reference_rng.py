@@ -23,6 +23,7 @@ from mettagrid_tpu.maps.map_builder import GameMap as JGameMap
 from mettagrid_tpu_torch import engine as tengine
 from mettagrid_tpu_torch.maps.map_builder import GameMap
 from mettagrid_tpu_torch.maps.random_map import RandomMapBuilder
+from mettagrid_tpu_torch.parity.arena import rename_walls
 from mettagrid_tpu_torch.tools import bench_run
 from tests.test_torch_step import _assert_outputs_equal, _assert_states_equal, _jax_state_numpy
 from tests.test_torch_territory import jax_twin
@@ -48,7 +49,7 @@ def build_both(cfg, seeds):
         b.config.seed = s
         grid = b.build_for_num_agents(program.num_agents).grid
         if "shrine" in cfg.game.objects:
-            grid = bench_run.rename_walls(grid, ["shrine"] * bench_run.TITHE_SHRINES)
+            grid = rename_walls(grid, ["shrine"] * bench_run.TITHE_SHRINES, reachable=True)
         grids.append(grid)
     jp = jengine.compile_program(jax_twin(cfg))
     ji = jengine.build_env_init(jp, [JGameMap(np.array(g)) for g in grids])
