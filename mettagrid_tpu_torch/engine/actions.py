@@ -24,6 +24,7 @@ from mettagrid_tpu_torch.engine.exec import Ctx, MtThread, device_table, eval_fi
 from mettagrid_tpu_torch.engine.handlers import apply_mutations
 from mettagrid_tpu_torch.engine.program import DIR_DC, DIR_DR, KIND_CHANGE_VIBE, KIND_MOVE, KIND_NOOP, EngineProgram
 from mettagrid_tpu_torch.engine.state import EnvState
+from mettagrid_tpu_torch.profiling import trace
 
 _I32 = torch.int32
 
@@ -122,7 +123,7 @@ def make_action_phase(program: EngineProgram, reference_rng: bool = False):
         valid = (action >= 0) & (action < n_actions)
         a = action.clamp(0, n_actions - 1).long()
         active = valid & (t["action_is_vibe"][a] == vibe_stream) & (t["action_priority"][a] == prio)
-        if not bool(active.any()):
+        if not trace.host_read(active.any(), "actions.sequential_active"):
             return state  # no env acts: every write below is masked off
         kind = t["action_kind"][a]
         arg = t["action_arg"][a]

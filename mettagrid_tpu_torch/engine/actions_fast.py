@@ -37,6 +37,7 @@ from mettagrid_tpu_torch.engine.program import (
     EngineProgram,
 )
 from mettagrid_tpu_torch.engine.state import EnvState
+from mettagrid_tpu_torch.profiling import trace
 
 # Waves run before the first host check of "any agent unsettled": with random
 # actions at arena densities the per-env wave count is small, so the common
@@ -436,9 +437,9 @@ def make_action_phase_fast(program: EngineProgram, pure_move: bool = False, lazy
     (a swap moves its target before the target's own turn).
 
     Returns action_phase(state, actions, vibe_actions, perm) -> state, out of
-    place (the input state's tensors are not written). action_phase.waves
-    holds the number of handler-chain (or pure-move) waves of its last call,
-    read from the host reads the loops make anyway."""
+    place (the input state's tensors are not written). Each loop adds its
+    waves to the counter ``actions.waves`` and reads its end through
+    ``trace.host_read`` (profiling/trace.py)."""
     sched_ok = footprint_schedule_ok(program)
     # Chebyshev interaction radius: two agents farther apart cannot reach a
     # common cell or object with their line scans and moves.
@@ -514,7 +515,7 @@ def make_action_phase_fast(program: EngineProgram, pure_move: bool = False, lazy
         tx = tcell[:, :, None]
         pos, unsettled, success = pos0, move_mask, torch.zeros_like(move_mask)
         waves = 0
-        while waves < PURE_UNROLL_WAVES or bool(unsettled.any()):
+        while waves < PURE_UNROLL_WAVES or trace.host_read(unsettled.any(), "actions.pure_waves"):
             py = pos[:, None, :]
             px = pos[:, :, None]
             dep = (unsettled[:, None, :] & earlier & ((ty == tx) | (py == tx) | (px == ty))).any(dim=-1)
@@ -525,13 +526,12 @@ def make_action_phase_fast(program: EngineProgram, pure_move: bool = False, lazy
             unsettled = unsettled & ~settle
             success = success | succ
             waves += 1
-        action_phase.waves += waves
+        trace.count("actions.waves", waves)
         return pos, success
 
     def action_phase(state: EnvState, actions, vibe_actions, perm) -> EnvState:
         E = actions.shape[0]
         dev = actions.device
-        action_phase.waves = 0
         if dev not in tables:
             tables[dev] = torch.from_numpy(table_np).to(dev)
         TB = tables[dev]
@@ -557,9 +557,9 @@ def make_action_phase_fast(program: EngineProgram, pure_move: bool = False, lazy
         for prio in program.priorities_desc:
             for vibe_stream in (False, True):
                 sel = (vibe_np == vibe_stream) & (prio_np == prio)
-                stream_has_move = bool((kind_np[sel] == KIND_MOVE).any())
-                stream_has_noop = bool((kind_np[sel] == KIND_NOOP).any())
-                stream_has_cv = bool((kind_np[sel] == KIND_CHANGE_VIBE).any())
+                stream_has_move = bool(np.any(kind_np[sel] == KIND_MOVE))
+                stream_has_noop = bool(np.any(kind_np[sel] == KIND_NOOP))
+                stream_has_cv = bool(np.any(kind_np[sel] == KIND_CHANGE_VIBE))
                 if not (stream_has_move or stream_has_noop or stream_has_cv) and vibe_stream:
                     continue
 
@@ -643,7 +643,7 @@ def make_action_phase_fast(program: EngineProgram, pure_move: bool = False, lazy
                     unsettled = move_mask
                     wave_idx = torch.zeros((E, A), dtype=torch.int32, device=dev)
                     n_waves = 0
-                    while bool(unsettled.any()):
+                    while trace.host_read(unsettled.any(), "actions.footprint_waves"):
                         settle = unsettled & ~(conflict & unsettled[:, None, :]).any(dim=-1)
                         wave_idx = torch.where(settle, n_waves, wave_idx)
                         unsettled = unsettled & ~settle
@@ -656,7 +656,7 @@ def make_action_phase_fast(program: EngineProgram, pure_move: bool = False, lazy
                         r_rec = torch.where(settle, state.obj_r[:, :A], r_rec)
                         c_rec = torch.where(settle, state.obj_c[:, :A], c_rec)
                         move_succ = move_succ | succ
-                    action_phase.waves += n_waves
+                    trace.count("actions.waves", n_waves)
                     settled_all = settled_now | move_mask
                     succ_all = succ_now | move_succ
                     r_at = torch.where(move_mask, r_rec, r_base)
@@ -677,7 +677,7 @@ def make_action_phase_fast(program: EngineProgram, pure_move: bool = False, lazy
                     unsettled = move_mask | settled_now if swaps else move_mask
                     move_succ = torch.zeros_like(move_mask)
                     r_rec, c_rec = r_base, c_base
-                    while bool(unsettled.any()):
+                    while trace.host_read(unsettled.any(), "actions.chebyshev_waves"):
                         ar, ac = state.obj_r[:, :A], state.obj_c[:, :A]
                         near = torch.maximum(
                             (ar[:, :, None] - ar[:, None, :]).abs(), (ac[:, :, None] - ac[:, None, :]).abs()
@@ -688,7 +688,7 @@ def make_action_phase_fast(program: EngineProgram, pure_move: bool = False, lazy
                         c_rec = torch.where(settle, state.obj_c[:, :A], c_rec)
                         unsettled = unsettled & ~settle
                         move_succ = move_succ | succ
-                        action_phase.waves += 1
+                        trace.count("actions.waves")
                     settled_all = settled_now | move_mask
                     succ_all = succ_now | move_succ
                     r_at, c_at = r_rec, c_rec
@@ -698,5 +698,4 @@ def make_action_phase_fast(program: EngineProgram, pure_move: bool = False, lazy
                 state = bookkeeping(state, settled_all, a, succ_all, r_at, c_at, sstat, fstat)
         return state
 
-    action_phase.waves = 0
     return action_phase

@@ -17,6 +17,7 @@ from mettagrid_tpu_torch.engine.handlers import apply_mutation, emit_inv_stats
 from mettagrid_tpu_torch.engine.program import EngineProgram
 from mettagrid_tpu_torch.engine.rng_dep import filter_consumes, mutation_consumes
 from mettagrid_tpu_torch.engine.state import EnvState
+from mettagrid_tpu_torch.profiling import trace
 
 # Mutation kinds with exact vectorized paths in aoe_phase (resource_delta
 # only on the target); the rest run _apply_general_mutations.
@@ -135,7 +136,7 @@ def _apply_general_mutations(program, state, mutations, passes, n_pass, A, draws
     E = passes.shape[0]
     dev = passes.device
     csum = passes.to(torch.int32).cumsum(dim=1)  # [E, N, A]
-    for w in range(int(n_pass.max())):
+    for w in range(trace.host_read(n_pass.max(), "aoe.source_waves", int)):
         sel = passes & (csum == w + 1)  # [E, N, A]: one source per agent at most
         actor_slot = sel.to(torch.int8).argmax(dim=1).to(torch.int32)  # [E, A]
         has = sel.any(dim=1)  # [E, A]

@@ -35,6 +35,7 @@ from mettagrid_tpu_torch.engine.mt19937 import shuffle_perm
 from mettagrid_tpu_torch.engine.rng_dep import handler_consumes
 from mettagrid_tpu_torch.engine.program import EngineProgram
 from mettagrid_tpu_torch.engine.state import EnvState
+from mettagrid_tpu_torch.profiling import trace
 
 
 def _fire_table(program: EngineProgram, timesteps: tuple[int, ...]) -> np.ndarray:
@@ -121,7 +122,7 @@ def _apply_event_sequential(program, state: EnvState, ev, env_fire: torch.Tensor
         can = env_fire & (slot >= 0)
         if ev.max_targets > 0:
             can = can & (applied < ev.max_targets)
-        if not bool(can.any()):
+        if not trace.host_read(can.any(), "events.mt_visit"):
             continue  # no env visits a target here: nothing applies or draws
         s = slot.clamp(0, N - 1)
         ctx = Ctx(

@@ -30,6 +30,7 @@ import torch
 from mettagrid_tpu_torch.engine.ir import CompiledFilter, CompiledQuery, CompiledValue
 from mettagrid_tpu_torch.engine.mt19937 import shuffle_perm
 from mettagrid_tpu_torch.engine.program import AMOUNT_STAT_BASE, AUTO_STAT_BASE, DIR_DC, DIR_DR
+from mettagrid_tpu_torch.profiling import trace
 
 _I32 = torch.int32
 
@@ -757,7 +758,7 @@ def _raycast(program, state, q: CompiledQuery, ctx: Optional[Ctx], mtd, dense) -
     else:
         L, rng_val = q.max_hops, None
     hits = torch.zeros((E, N + 1), dtype=torch.bool, device=dev)  # column N: a spare for masked-off hits
-    k = int(sources.sum(dim=1).max()) if L > 0 and q.directions else 0
+    k = trace.host_read(sources.sum(dim=1).max(), "query.raycast_sources", int) if L > 0 and q.directions else 0
     if k > 0:
         iota = torch.arange(N, dtype=_I32, device=dev)
         src = torch.where(sources, iota, N).sort(dim=1).values[:, :k]  # the first k source slots, N past the last

@@ -549,7 +549,7 @@ def recompute_materialized(program, state, env_mask=None, tag_mask=None, mtd=Non
     (query_system.cpp compute_all): env_mask bool[E] limits the envs,
     tag_mask bool[n_tags] the tags."""
     for tag_id, query in program.materialized:
-        if tag_mask is not None and not bool(tag_mask[tag_id]):
+        if tag_mask is not None and not tag_mask[tag_id]:  # a numpy mask of the program
             continue
         bit = eval_query_mask(program, state, query, None, mtd)  # [E, N]
         tags = state.obj_tags.clone()

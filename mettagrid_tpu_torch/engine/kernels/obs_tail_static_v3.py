@@ -32,6 +32,7 @@ import torch
 from mettagrid_tpu_torch.engine.kernels import build, tail_plan
 from mettagrid_tpu_torch.engine.kernels.obs_tail_dyn_v3 import check_pair, paired_candidates
 from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import add_words, check_static_inputs, launch, v2_words_ref
+from mettagrid_tpu_torch.profiling import trace
 
 
 def _agent_rows(rext, HP2: int):
@@ -43,7 +44,7 @@ def _agent_rows(rext, HP2: int):
 def obs_tail_static_v3_ref(static_l, static_r, map_idx, row0, lane0, rext, lext, words, gplus, geom, out_w: int):
     """Plain PyTorch version of the kernel (any device). Returns
     (words int32[E, A, out_w], attempted int32[E, A])."""
-    if bool((rext < 1).any()):
+    if trace.host_read((rext < 1).any(), "obs.v3_row0"):
         raise ValueError("obs_tail_static_v3: an agent sits on image row 0, which the pairing cannot hold")
     _, HP2x2, WPC = static_l.shape
     E = row0.shape[0]

@@ -33,6 +33,8 @@ from __future__ import annotations
 
 import torch
 
+from mettagrid_tpu_torch.profiling import trace
+
 MT_N = 624
 MT_M = 397
 _MATRIX_A = 0x9908B0DF
@@ -83,7 +85,7 @@ def mt_next(state: torch.Tensor, active: torch.Tensor):
     advance their cursor nor twist. Returns (state, int64[E])."""
     mt, idx = state[:, :MT_N], state[:, MT_N]
     need_twist = active & (idx >= MT_N)
-    if bool(need_twist.any()):
+    if trace.host_read(need_twist.any(), "mt.twist"):
         mt = torch.where(need_twist[:, None], _twist(mt), mt)
         idx = torch.where(need_twist, 0, idx)
     pos = idx.clamp(max=MT_N - 1)
@@ -110,14 +112,14 @@ def uniform_int(state: torch.Tensor, range_: torch.Tensor, active: torch.Tensor)
     engine: the Lemire downscale with rejection. range_: integer[E] in
     [1, 2^32] (an env with range 1 still draws once, as the reference
     does). Returns (state, int64[E] in [0, range), 0 where not active)."""
-    if not bool(active.any()):
+    if not trace.host_read(active.any(), "mt.uniform_active"):
         return state, torch.zeros_like(range_, dtype=_I64)
     r = range_.to(_I64)
     threshold = ((1 << 32) - r) % r
     state, u = mt_next(state, active)
     lo, hi = _mul32(u, r)
     need = active & (lo < threshold)
-    while bool(need.any()):
+    while trace.host_read(need.any(), "mt.uniform_reject"):
         state, u = mt_next(state, need)
         lo2, hi2 = _mul32(u, r)
         lo = torch.where(need, lo2, lo)
@@ -148,7 +150,7 @@ def shuffle_perm(state: torch.Tensor, n: torch.Tensor, max_n: int, active: torch
     n = n.to(torch.int32)
     perm = torch.arange(max_n, dtype=torch.int32, device=n.device)[None, :].expand(E, max_n).contiguous()
     live = active & (n >= 2)
-    if max_n < 2 or not bool(live.any()):
+    if max_n < 2 or not trace.host_read(live.any(), "mt.shuffle_live"):
         return state, perm
     # An even n first draws uniform(0, 1) and swaps positions 1 and j
     # (stl_algo.h __shuffle's leading swap when (last - first) % 2 == 0).
@@ -158,7 +160,7 @@ def shuffle_perm(state: torch.Tensor, n: torch.Tensor, max_n: int, active: torch
     # Pair p touches i = 2p (even n) or 2p - 1 (odd n); one draw over
     # [0, (i+1)(i+2)) gives the two positions (x // (i+2), x % (i+2)). Pairs
     # past every live env's n draw nothing, so the loop stops at the largest.
-    top = int(torch.where(live, n, 0).max())
+    top = trace.host_read(torch.where(live, n, 0).max(), "mt.shuffle_top", int)
     for p in range(1, min((max_n - 1) // 2, (top - 1) // 2) + 1):
         i = torch.where(n % 2 == 0, 2 * p, 2 * p - 1).to(_I64)
         part = live & (i <= n - 2)

@@ -455,7 +455,7 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
     KS = K * S
     KS_pad2 = ((G + KS + 127) // 128) * 128  # v2 candidate lanes incl. globals
     has_aoe_mask = feat.aoe_mask != 0 and bool(program.territories)
-    feat_max = max([int(cand_feat.max()) if cand_feat.size else 0] + [int(global_fids[s]) for s in global_slots])
+    feat_max = max([int(np.max(cand_feat)) if cand_feat.size else 0] + [int(global_fids[s]) for s in global_slots])
     wide = KS_pad2 > 512
     v2_common = (
         not has_aoe_mask

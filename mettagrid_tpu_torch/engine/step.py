@@ -22,13 +22,18 @@ events' shuffles and the order_by=random queries in the C++ engine's
 stream order. Every phase works out of place: a step never writes the
 tensors of the state it was given (the one exception is the carried
 observation buffer, see make_step).
+
+Each phase runs in a span of profiling/trace.py (``step.auto_reset``,
+``step.actions``, ... ``step.rewards``, also torch.profiler ranges); make_reset,
+make_step, the first reset and the first step are the set-up spans
+``setup.make_reset``, ``setup.make_step``, ``setup.reset`` and
+``setup.first_step``, and every later step call is counted as ``step.calls``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from mettagrid_tpu_torch.engine.actions import make_action_phase
 from mettagrid_tpu_torch.engine.actions_fast import (
@@ -51,6 +56,7 @@ from mettagrid_tpu_torch.engine.rewards import make_reward_phase
 from mettagrid_tpu_torch.engine.rng_dep import actions_consume_rng, handler_consumes, reference_rng_unsupported
 from mettagrid_tpu_torch.engine.state import EnvState, StepOutputs, resolve_device
 from mettagrid_tpu_torch.engine.territory import make_territory_phase
+from mettagrid_tpu_torch.profiling import trace
 
 # In-step auto-reset merge classes (reference step.py:46-76): fields whose
 # fresh value is a broadcastable constant, and the map-derived pool tables.
@@ -148,7 +154,9 @@ def _fresh_state_from_pool(
         if R:
             a0 = int(program.stat_inv_amount[0])
             agent_stats0[..., a0 : a0 + R] = obj_inv0[:, :A].to(torch.float32)
-    init_t = torch.from_numpy(np.asarray(program.agent_stats_init_touched)).to(dev)  # [n_cfg, Sa]
+    # A blocking copy from host memory: the host waits for the device here.
+    with trace.host_sync("auto_reset.agent_touched_copy"):
+        init_t = torch.from_numpy(np.asarray(program.agent_stats_init_touched)).to(dev)  # [n_cfg, Sa]
     if init_t.shape[0] == 1:
         agent_touched0 = init_t[0].expand(E, A, init_t.shape[1]).clone()
     else:
@@ -159,7 +167,8 @@ def _fresh_state_from_pool(
         game_stats0[:, program.stat_tokens_written] = pts[:, 0]
         game_stats0[:, program.stat_tokens_dropped] = pts[:, 1]
         game_stats0[:, program.stat_tokens_free] = pts[:, 2]
-    game_touched0 = torch.from_numpy(np.asarray(program.game_stats_init_touched)).to(dev).expand(E, Sg).clone()
+    with trace.host_sync("auto_reset.game_touched_copy"):
+        game_touched0 = torch.from_numpy(np.asarray(program.game_stats_init_touched)).to(dev).expand(E, Sg).clone()
     N = pool["obj_type"].shape[1]
     state = EnvState(
         grid=pick("grid"),
@@ -213,6 +222,7 @@ def _fresh_state_from_pool(
     return state
 
 
+@trace.setup_span("setup.make_reset")
 def make_reset(program: EngineProgram, init: EnvInit, num_envs: int, reference_rng: bool = False, device=None,
                obs_tail: str = "auto"):
     """Returns reset(seed, query_ranks=None) -> (state, StepOutputs) with
@@ -257,7 +267,7 @@ def make_reset(program: EngineProgram, init: EnvInit, num_envs: int, reference_r
         )
         return state, out
 
-    return reset
+    return trace.first_call(reset, "setup.reset")
 
 
 def make_agent_tick_phase(program: EngineProgram, reference_rng: bool = False):
@@ -455,6 +465,7 @@ def _pool_token_stats(program: EngineProgram, pool: dict, obs_fn, P: int, draws:
     ).to(torch.float32)
 
 
+@trace.setup_span("setup.make_step")
 def make_step(
     program: EngineProgram,
     init: EnvInit,
@@ -649,10 +660,10 @@ def make_step(
             raise ValueError("reference_rng draws the queries' shuffles from the MT19937 twin; pass no query_ranks")
         draws.start_step(query_ranks)
         if auto_reset:
-            with record_function("step.auto_reset"):
+            with trace.span("step.auto_reset"):
                 state = auto_reset_merge(state, reset_maps)
 
-        with record_function("step.actions"):
+        with trace.span("step.actions"):
             # --- agent order: perm[e, i] = agent acting at rank i ---
             if reference_rng:
                 # libstdc++'s std::shuffle of the agents from each env's twin
@@ -684,7 +695,7 @@ def make_step(
 
         # --- events (mettagrid_c.cpp:1008-1011) ---
         if event_phase is not None:
-            with record_function("step.events"):
+            with trace.span("step.events"):
                 if event_ranks is None and not reference_rng:
                     N = state.obj_type.shape[1]
                     event_ranks = torch.rand((E, event_phase.num_rank_rows, N), generator=generator, device=dev)
@@ -692,32 +703,32 @@ def make_step(
 
         # --- per-agent on_tick (mettagrid_c.cpp:1018-1024) ---
         if agent_tick_phase is not None:
-            with record_function("step.agent_tick"):
+            with trace.span("step.agent_tick"):
                 state = agent_tick_phase(state, draws)
 
         # --- AOE effects, then territory effects (mettagrid_c.cpp:1031-1042) ---
         if aoe_phase is not None:
-            with record_function("step.aoe"):
+            with trace.span("step.aoe"):
                 state = aoe_phase(state, draws)
         if territory_phase is not None:
-            with record_function("step.territory"):
+            with trace.span("step.territory"):
                 state = territory_phase(state, draws)
 
         # --- game on_tick (mettagrid_c.cpp:1050-1056) ---
         if game_tick_phase is not None:
-            with record_function("step.game_tick"):
+            with trace.span("step.game_tick"):
                 state = game_tick_phase(state, draws)
 
         # --- observations (before rewards, like the reference) ---
-        with record_function("step.obs"):
+        with trace.span("step.obs"):
             obs, attempted = obs_fn(state, obs_buf=obs_buf)
-        with record_function("step.stats"):
+        with trace.span("step.stats"):
             state = coverage_phase(state)
             state = visited_phase(state)
             state = _token_stat_update(program, state, attempted)
 
         # --- rewards ---
-        with record_function("step.rewards"):
+        with trace.span("step.rewards"):
             state = reward_phase(state, draws)
 
         # --- truncation (mettagrid_c.cpp:1086-1096) ---
@@ -738,6 +749,7 @@ def make_step(
         )
         return state, out
 
+    step = trace.program_step(step)
     step.obs_fn = obs_fn
     step.action_phase = action_phase
     step.action_phase_kind = "waves" if use_fast else "sequential"

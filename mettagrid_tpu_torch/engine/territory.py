@@ -24,6 +24,7 @@ from mettagrid_tpu_torch.engine.handlers import apply_mutations
 from mettagrid_tpu_torch.engine.rng_dep import handler_consumes
 from mettagrid_tpu_torch.engine.program import EngineProgram
 from mettagrid_tpu_torch.engine.state import EnvState
+from mettagrid_tpu_torch.profiling import trace
 
 INFLUENCE_SCALE = 1024
 
@@ -66,7 +67,7 @@ def territory_scores(program: EngineProgram, state: EnvState, ti: int, pr: torch
     for i in reversed(range(Tt)):
         src_tag = torch.where(state.obj_tags[:, :, tag_ids[i]], i, src_tag)
     emits = state.obj_alive & (strength > 0) & (src_tag >= 0)
-    M = int(emits.sum(dim=1).max()) if E else 0  # the one host read
+    M = trace.host_read(emits.sum(dim=1).max(), "territory.emitters", int) if E else 0  # the one host read
     if M == 0:
         return torch.zeros((E, P, Tt), dtype=torch.int32, device=pr.device), tag_ids
     # The emitting slots first, in slot order; the sums are exact in any order.

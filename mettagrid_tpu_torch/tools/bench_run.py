@@ -119,6 +119,7 @@ from mettagrid_tpu_torch.parity.arena import (
     apply_family,
     combat_loadout,
 )
+from mettagrid_tpu_torch.profiling import trace
 
 AGENTS = 24
 ENVS = 4096
@@ -474,16 +475,18 @@ class BenchRun:
     def run(self, state, out, n: int):
         """n steps from (state, out); returns the last (state, out). The last
         step's primary actions are kept in ``last_actions``, and each step's
-        wave count (the wave phase's action_phase.waves) is appended to
-        ``waves``."""
+        wave count (the counter ``actions.waves`` of profiling/trace.py,
+        which counts untraced steps after a step's first: 0 for the others)
+        is appended to ``waves``."""
         for _ in range(n):
             if self.variant == "full_combat":
                 acts, vibes = full_combat_actions(self.program, self.generator, (self.envs, AGENTS), self.device)
             else:
                 acts = self._draw()
                 vibes = self._draw() if self._vibes else torch.zeros_like(acts)
+            waves = trace.counted("actions.waves")
             state, out = self.step(state, acts, vibes, None, out.observations)
-            self.waves.append(getattr(self.step.action_phase, "waves", 0))
+            self.waves.append(trace.counted("actions.waves") - waves)
             self.last_actions = acts
         return state, out
 

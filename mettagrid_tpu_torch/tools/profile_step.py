@@ -17,7 +17,14 @@ share (one minus kernel time over the untraced step time), the kernel
 launches, the kernels that take the most device time, the
 observation route (obs_fn.route), the action phase and its waves per step
 (mean and largest over the untraced steps) and the peak device memory from
-the start of the run. Prints one JSON object and writes it to --out.
+the start of the run. ``untraced`` holds the untraced steps' totals of
+profiling/trace.py per step (``phase_timing.per_step``: each span's host ms
+and self ms, the ``sync.<site>`` reads, ``host_syncs`` and ``actions.waves``,
+the host's issue ms, and the set-up spans); ``idle_gaps_by_span`` the traced
+window's idle device time per step by the innermost program span the host
+was in (``phase_timing.idle_by_span``): a ``sync.<site>`` read, a ``step.*``
+phase, the rest of the ``step`` call, or outside it. Prints one JSON object
+and writes it to --out.
 """
 
 from __future__ import annotations
@@ -29,7 +36,8 @@ from pathlib import Path
 
 import torch
 
-from mettagrid_tpu_torch.profiling.phase_timing import span_times
+from mettagrid_tpu_torch.profiling import trace as recorder
+from mettagrid_tpu_torch.profiling.phase_timing import device_intervals, idle_by_span, per_step, span_times
 from mettagrid_tpu_torch.tools.bench_run import AGENTS, ENVS, POOL, VARIANTS, BenchRun
 
 STEPS = 32
@@ -39,12 +47,16 @@ def trace(bench, state, out, n: int, spans: bool = True):
     """n more steps of ``bench`` under torch.profiler. Returns (state, out,
     per-step figures): the traced host ms, the device's busy ms, the kernel
     launches, each ``step.*`` span's host ms and the device ms of the
-    kernels that start inside it, and the kernels that take the most device
-    time. spans=False traces the device alone (no span figures): far fewer
-    events to collect where a step issues many thousand launches."""
+    kernels that start inside it, the kernels that take the most device
+    time, and the idle device ms per step by the innermost program span the
+    host was in (phase_timing.idle_by_span). spans=False traces the device
+    alone (no span figures): far fewer events to collect where a step issues
+    many thousand launches."""
     acts = [torch.profiler.ProfilerActivity.CUDA] + ([torch.profiler.ProfilerActivity.CPU] if spans else [])
+    recorder.drain()
     with torch.profiler.profile(activities=acts) as prof:
         state, out, secs = bench.timed(state, out, n)
+    _, idle = idle_by_span(device_intervals(prof), recorder.drain())
     span_ms, by_name = span_times(prof, n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     return state, out, {
@@ -53,6 +65,7 @@ def trace(bench, state, out, n: int, spans: bool = True):
         "kernel_launches_per_step": sum(k[1] for k in by_name.values()) / n,
         "spans": span_ms,
         "top_kernels": [{"name": name[:120], "device_ms": ms, "per_step": cnt / n} for name, (ms, cnt) in top],
+        "idle_gaps_by_span": {k: v * 1e3 / n for k, v in sorted(idle.items(), key=lambda kv: -kv[1])},
     }
 
 
@@ -69,8 +82,10 @@ def main(argv=None) -> dict:
     torch.cuda.reset_peak_memory_stats()
     bench = BenchRun(args.variant, seed=7)
     state, out = bench.warmed_up()
+    setup = recorder.reset()
     state, out, secs = bench.timed(state, out, n)
     plain_ms = secs / n * 1e3
+    untraced = {**per_step(recorder.snapshot()), "setup_s": per_step(setup)["setup_s"]}
 
     waves = bench.waves[-n:]
     state, out, traced = trace(bench, state, out, n)
@@ -96,6 +111,7 @@ def main(argv=None) -> dict:
         "device_idle_share": max(0.0, 1.0 - busy_ms / plain_ms),
         **traced,
         "device_idle_share_traced": max(0.0, 1.0 - busy_ms / traced["step_ms_traced"]),
+        "untraced": untraced,
     }
     text = json.dumps(report)
     print(text)
