@@ -15,11 +15,10 @@ move handlers of range above 1 take.
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
+from mettagrid_tpu_torch.engine import step_graphs
 from mettagrid_tpu_torch.engine.exec import Ctx, eval_filters, grid_read, grid_write
 from mettagrid_tpu_torch.engine.handlers import (
     InvStatBatch,
@@ -27,7 +26,7 @@ from mettagrid_tpu_torch.engine.handlers import (
     flush_inv_stat_batch,
     inv_stat_batch_ok,
 )
-from mettagrid_tpu_torch.engine.ir import CompiledFilter, CompiledHandler, CompiledMutation, CompiledQuery
+from mettagrid_tpu_torch.engine.ir import CompiledFilter, CompiledHandler, CompiledMutation, CompiledQuery, reaches
 from mettagrid_tpu_torch.engine.program import (
     DIR_DC,
     DIR_DR,
@@ -220,25 +219,8 @@ def reads_grid(program: EngineProgram) -> bool:
     for it. (The reference turns its lazy grid on without asking, so a
     raycast reached from a reward or a value observation reads agents where
     they were placed; ROADMAP Queue 3.)"""
-    seen = set()
-
-    def walk(node) -> bool:
-        if node is None or isinstance(node, (str, bytes, int, float, np.ndarray)) or id(node) in seen:
-            return False
-        seen.add(id(node))
-        if isinstance(node, CompiledQuery) and node.kind == "raycast":
-            return True
-        if isinstance(node, CompiledMutation) and node.kind in _GRID_READING_MUTATIONS:
-            return True
-        if isinstance(node, dict):
-            node = list(node.values())
-        if isinstance(node, (list, tuple)):
-            return any(walk(x) for x in node)
-        if dataclasses.is_dataclass(node):
-            return any(walk(getattr(node, f.name)) for f in dataclasses.fields(node))
-        return False
-
-    return walk(program)
+    return reaches(program, lambda node: (isinstance(node, CompiledQuery) and node.kind == "raycast")
+                   or (isinstance(node, CompiledMutation) and node.kind in _GRID_READING_MUTATIONS))
 
 
 def _m_gridsafe(m, move_ctx: bool) -> bool:
@@ -510,24 +492,36 @@ def make_action_phase_fast(program: EngineProgram, pure_move: bool = False, lazy
         """Settle movers in waves. x waits while an earlier unsettled mover y
         exists that affects x's target (t_y == t_x: may arrive; p_y == t_x:
         may vacate) or would be affected by x's move (p_x == t_y). Each wave
-        settles at least the earliest unsettled agent of every env."""
+        settles at least the earliest unsettled agent of every env. Under a
+        CUDA graph capture (engine/step_graphs.py) the loop after the
+        unrolled waves is cut at its reads."""
         ty = tcell[:, None, :]  # [E, x, y]
         tx = tcell[:, :, None]
-        pos, unsettled, success = pos0, move_mask, torch.zeros_like(move_mask)
-        waves = 0
-        while waves < PURE_UNROLL_WAVES or trace.host_read(unsettled.any(), "actions.pure_waves"):
+
+        def wave(pos, unsettled, success):
             py = pos[:, None, :]
             px = pos[:, :, None]
             dep = (unsettled[:, None, :] & earlier & ((ty == tx) | (py == tx) | (px == ty))).any(dim=-1)
             settle = unsettled & ~dep
             occ = (py == tx).any(dim=-1)
             succ = settle & can & ~occ
-            pos = torch.where(succ, tcell, pos)
-            unsettled = unsettled & ~settle
-            success = success | succ
+            return torch.where(succ, tcell, pos), unsettled & ~settle, success | succ
+
+        carry = (pos0, move_mask, torch.zeros_like(move_mask))
+        for _ in range(PURE_UNROLL_WAVES):
+            carry = wave(*carry)
+        recorder = step_graphs.capturing()
+        if recorder is not None:
+            pos, _, success = recorder.wave_loop(
+                wave, carry, lambda c: c[1].any(), "actions.pure_waves", "actions.waves", PURE_UNROLL_WAVES
+            )
+            return pos, success
+        waves = PURE_UNROLL_WAVES
+        while trace.host_read(carry[1].any(), "actions.pure_waves"):
+            carry = wave(*carry)
             waves += 1
         trace.count("actions.waves", waves)
-        return pos, success
+        return carry[0], carry[2]
 
     def action_phase(state: EnvState, actions, vibe_actions, perm) -> EnvState:
         E = actions.shape[0]

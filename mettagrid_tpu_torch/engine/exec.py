@@ -172,6 +172,15 @@ def gather(arr: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     return out.reshape(tuple(slot.shape) + rest)
 
 
+def _values_like(value, like: torch.Tensor) -> torch.Tensor:
+    """``value`` in ``like``'s dtype on its device; a number is filled in on
+    the device, with no copy from host memory (which a CUDA graph capture
+    refuses)."""
+    if isinstance(value, (int, float, np.number, np.bool_)):
+        return torch.full((), value, dtype=like.dtype, device=like.device)
+    return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+
+
 def scatter(arr: torch.Tensor, slot: torch.Tensor, value, mask: torch.Tensor) -> torch.Tensor:
     """Masked write arr[e, slot] = value, out of place. Masked-off entries
     never write; masked-on slots within an env must be distinct (callers
@@ -180,7 +189,7 @@ def scatter(arr: torch.Tensor, slot: torch.Tensor, value, mask: torch.Tensor) ->
     rest = tuple(arr.shape[2:])
     flat = slot.reshape(E, -1)
     M = flat.shape[1]
-    v = torch.as_tensor(value, dtype=arr.dtype, device=arr.device).broadcast_to(tuple(slot.shape) + rest)
+    v = _values_like(value, arr).broadcast_to(tuple(slot.shape) + rest)
     v = v.reshape(E, M, -1)
     idx = torch.where(mask.reshape(E, M), flat.clamp(0, N - 1), N).long()  # N: a spare row
     a2 = arr.reshape(E, N, -1)
@@ -196,7 +205,7 @@ def grid_write(grid: torch.Tensor, r: torch.Tensor, c: torch.Tensor, value, mask
     m = mask.reshape(E, -1)
     rr = torch.where(m, r.reshape(E, -1).clamp(0, H - 1), H)  # row H: a spare row
     cc = c.reshape(E, -1).clamp(0, W - 1)
-    v = torch.as_tensor(value, dtype=grid.dtype, device=grid.device).broadcast_to(mask.shape).reshape(E, -1)
+    v = _values_like(value, grid).broadcast_to(mask.shape).reshape(E, -1)
     out = torch.cat([grid.reshape(E, H * W), grid.new_zeros((E, W))], dim=1)
     out.scatter_(1, (rr * W + cc).long(), v)
     return out[:, : H * W].reshape(E, H, W)

@@ -9,8 +9,9 @@ the dispatch disappears into the XLA graph.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -233,3 +234,26 @@ class CompiledRewardEntry:
 
     value: CompiledValue
     accumulate: bool
+
+
+def reaches(root, pred: Callable) -> bool:
+    """True when ``pred`` holds for a node reachable from ``root`` through
+    dataclass fields, lists, tuples and dicts (a compiled program, handler,
+    query, ...); arrays, strings and numbers are leaves."""
+    seen = set()
+
+    def walk(node) -> bool:
+        if node is None or isinstance(node, (str, bytes, int, float, np.ndarray)) or id(node) in seen:
+            return False
+        seen.add(id(node))
+        if pred(node):
+            return True
+        if isinstance(node, dict):
+            node = list(node.values())
+        if isinstance(node, (list, tuple)):
+            return any(walk(x) for x in node)
+        if dataclasses.is_dataclass(node):
+            return any(walk(getattr(node, f.name)) for f in dataclasses.fields(node))
+        return False
+
+    return walk(root)

@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from mettagrid_tpu_torch.engine.kernels import build
+from mettagrid_tpu_torch.engine.kernels import build, count_launch
 from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import compact_ref
 
 
@@ -47,7 +47,7 @@ def compact_rows(words, T: int):
         err = lib.compact_rows_launch(words.data_ptr(), out.data_ptr(), R, C, T, stream)
     if err != 0:
         raise RuntimeError(f"compact_rows: kernel launch failed with cudaError_t {err}")
-    compact_rows.launches += 1
+    count_launch(compact_rows)
     return out
 
 

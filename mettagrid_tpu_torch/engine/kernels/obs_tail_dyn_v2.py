@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from mettagrid_tpu_torch.engine.kernels import build, tail_plan
+from mettagrid_tpu_torch.engine.kernels import build, count_launch, tail_plan
 from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import launch, tail_ref
 
 
@@ -72,7 +72,7 @@ def obs_tail_dyn_v2(imgp, row0, lane0, gplus, geom, S: int, out_w: int, wide: bo
     if imgp.device.type != "cuda":
         raise ValueError(f"obs_tail_dyn_v2 runs on CUDA or CPU tensors, not {imgp.device}")
     out, attempted, obs_tail_dyn_v2.last_launch = launch_plans(None, imgp, row0, lane0, gplus, geom, S, out_w, wide)
-    obs_tail_dyn_v2.launches += 1
+    count_launch(obs_tail_dyn_v2)
     return out, attempted
 
 

@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from mettagrid_tpu_torch.engine.kernels import build, tail_plan
+from mettagrid_tpu_torch.engine.kernels import build, count_launch, tail_plan
 from mettagrid_tpu_torch.engine.kernels.obs_tail_dyn_v2 import check_window_inputs
 from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import launch, v2_words_ref
 from mettagrid_tpu_torch.engine.program import GLOBAL_LOCATION
@@ -94,7 +94,7 @@ def obs_tail_dyn_v3(imgp_l, imgp_r, row0, lane0, gplus, geom, S: int, out_w: int
     out, attempted, obs_tail_dyn_v3.last_launch = launch_plans(
         None, imgp_l, imgp_r, row0, lane0, gplus, geom, S, out_w
     )
-    obs_tail_dyn_v3.launches += 1
+    count_launch(obs_tail_dyn_v3)
     return out, attempted
 
 

@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from mettagrid_tpu_torch.engine.kernels import build, tail_plan
+from mettagrid_tpu_torch.engine.kernels import build, count_launch, tail_plan
 from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import add_words, launch, tail_ref
 
 
@@ -80,7 +80,7 @@ def obs_tail_dynobj_v2(rext, lext, words, row0, lane0, gplus, geom, HP: int, WPC
     out, attempted, obs_tail_dynobj_v2.last_launch = launch_plans(
         None, rext, lext, words, row0, lane0, gplus, geom, HP, WPC, out_w, wide
     )
-    obs_tail_dynobj_v2.launches += 1
+    count_launch(obs_tail_dynobj_v2)
     return out, attempted
 
 

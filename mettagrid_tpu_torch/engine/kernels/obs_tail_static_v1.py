@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from mettagrid_tpu_torch.engine.kernels import build, tail_plan
+from mettagrid_tpu_torch.engine.kernels import build, count_launch, tail_plan
 from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import add_words, check_static_inputs, launch
 from mettagrid_tpu_torch.engine.kernels.obs_tail_v1 import tail_v1_ref
 
@@ -53,7 +53,7 @@ def obs_tail_static_v1(static_imgp, map_idx, row0, lane0, rext, lext, words, gwo
     out, attempted, obs_tail_static_v1.last_launch = launch_plans(
         None, static_imgp, map_idx, row0, lane0, rext, lext, words, gwords, geom, out_w
     )
-    obs_tail_static_v1.launches += 1
+    count_launch(obs_tail_static_v1)
     return out, attempted
 
 

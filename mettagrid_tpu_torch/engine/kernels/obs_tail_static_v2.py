@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from mettagrid_tpu_torch.engine.kernels import build, tail_plan
+from mettagrid_tpu_torch.engine.kernels import build, count_launch, tail_plan
 from mettagrid_tpu_torch.engine.kernels.tail_plan import MAX_SMEM  # noqa: F401 (the obs route's and B7's limit)
 from mettagrid_tpu_torch.engine.program import GLOBAL_LOCATION
 
@@ -152,17 +152,25 @@ def check_static_inputs(name, static_imgp, map_idx, row0, lane0, rext, lext, wor
         raise ValueError(f"{name}: the image must be a whole number of 16-byte rows, 16-byte aligned")
 
 
+_CHOSEN: dict = {}  # (kernel, plans, E, device) -> (plan, grid, blocks per SM, registers, SMs)
+_PLANS: dict = {}  # B1's candidate plans by shapes
+
+
 def launch(lib, name: str, plans, E: int, device, args) -> dict:
     """Launches kernel ``name`` of ``lib`` with the plan of ``plans``
     (tail_plan.candidate_plans) that leaves the most warps resident per SM
     on ``device``, on a persistent grid for E envs, after ``args``
     (pointers and shapes); raises on a launch error. Returns the launch's
     record: grid, warps, stages, mode, rounds, shared bytes, blocks per SM,
-    registers and SMs."""
-    occ = {p: tail_plan.occupancy(lib, name, p, device) for p in plans}
-    plan = tail_plan.choose(plans, lambda p: occ[p][0])
-    blocks_per_sm, regs, sms = occ[plan]
-    grid = tail_plan.persistent_grid(E, sms, blocks_per_sm)
+    registers and SMs. The choice is kept per kernel, plans, E and device,
+    so a repeated launch (or its capture into a CUDA graph) only launches."""
+    key = (name, tuple(plans), E, device)
+    chosen = _CHOSEN.get(key)
+    if chosen is None:
+        occ = {p: tail_plan.occupancy(lib, name, p, device) for p in plans}
+        plan = tail_plan.choose(plans, lambda p: occ[p][0])
+        chosen = _CHOSEN[key] = (plan, tail_plan.persistent_grid(E, occ[plan][2], occ[plan][0]), *occ[plan])
+    plan, grid, blocks_per_sm, regs, sms = chosen
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, f"{name}_launch")(
@@ -187,7 +195,7 @@ def obs_tail_static_v2(static_imgp, map_idx, row0, lane0, rext, lext, words, gpl
     out, attempted, obs_tail_static_v2.last_launch = launch_plans(
         None, static_imgp, map_idx, row0, lane0, rext, lext, words, gplus, geom, out_w, wide
     )
-    obs_tail_static_v2.launches += 1
+    count_launch(obs_tail_static_v2)
     return out, attempted
 
 
@@ -202,7 +210,10 @@ def launch_plans(plans, static_imgp, map_idx, row0, lane0, rext, lext, words, gp
     E, A = row0.shape
     S, G, K = words.shape[2], gplus.shape[2], geom.shape[0]
     if plans is None:
-        plans = tail_plan.candidate_plans("B1", HP, WPC, A, G, K, S, out_w)
+        key = (HP, WPC, A, G, K, S, out_w, tail_plan.MAX_SMEM)
+        plans = _PLANS.get(key)
+        if plans is None:
+            plans = _PLANS[key] = tail_plan.candidate_plans("B1", HP, WPC, A, G, K, S, out_w)
     else:
         tail_plan.check_holds("B1", plans, HP, WPC, G, S, out_w)
     dev = static_imgp.device

@@ -29,7 +29,7 @@ import ctypes
 
 import torch
 
-from mettagrid_tpu_torch.engine.kernels import build, tail_plan
+from mettagrid_tpu_torch.engine.kernels import build, count_launch, tail_plan
 from mettagrid_tpu_torch.engine.kernels.obs_tail_dyn_v3 import check_pair, paired_candidates
 from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import add_words, check_static_inputs, launch, v2_words_ref
 from mettagrid_tpu_torch.profiling import trace
@@ -70,7 +70,7 @@ def obs_tail_static_v3(static_l, static_r, map_idx, row0, lane0, rext, lext, wor
     out, attempted, obs_tail_static_v3.last_launch = launch_plans(
         None, static_l, static_r, map_idx, row0, lane0, rext, lext, words, gplus, geom, out_w
     )
-    obs_tail_static_v3.launches += 1
+    count_launch(obs_tail_static_v3)
     return out, attempted
 
 

@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from mettagrid_tpu_torch.engine.kernels import build, tail_plan
+from mettagrid_tpu_torch.engine.kernels import build, count_launch, tail_plan
 from mettagrid_tpu_torch.engine.kernels.obs_tail_dyn_v2 import check_window_inputs
 from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import candidates, compact_ref, launch
 
@@ -60,7 +60,7 @@ def obs_tail_v1(imgp, row0, lane0, gwords, geom, S: int, out_w: int):
     if imgp.device.type != "cuda":
         raise ValueError(f"obs_tail_v1 runs on CUDA or CPU tensors, not {imgp.device}")
     out, attempted, obs_tail_v1.last_launch = launch_plans(None, imgp, row0, lane0, gwords, geom, S, out_w)
-    obs_tail_v1.launches += 1
+    count_launch(obs_tail_v1)
     return out, attempted
 
 

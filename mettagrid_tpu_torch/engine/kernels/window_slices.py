@@ -29,7 +29,7 @@ from typing import NamedTuple
 
 import torch
 
-from mettagrid_tpu_torch.engine.kernels import build, tail_plan
+from mettagrid_tpu_torch.engine.kernels import build, count_launch, tail_plan
 from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import MAX_SMEM, candidates
 
 # Warps per block, one block per SM: on full_combat's images more blocks
@@ -100,7 +100,7 @@ def window_slices(img, row0, lane0, geom, Ch: int):
     if img.device.type != "cuda":
         raise ValueError(f"window_slices runs on CUDA or CPU tensors, not {img.device}")
     out, window_slices.last_launch = launch_plan(None, img, row0, lane0, geom, Ch)
-    window_slices.launches += 1
+    count_launch(window_slices)
     return out
 
 

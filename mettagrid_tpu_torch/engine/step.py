@@ -19,8 +19,8 @@ window rows wider than 128 lanes).
 reference_rng=True is the reference's reference-RNG step: a per-env
 MT19937 twin (engine/mt19937.py, state.mt) draws the agent order, the
 events' shuffles and the order_by=random queries in the C++ engine's
-stream order. Every phase works out of place: a step never writes the
-tensors of the state it was given (the one exception is the carried
+stream order. Every phase works out of place: an eager step never writes
+the tensors of the state it was given (the one exception is the carried
 observation buffer, see make_step).
 
 Each phase runs in a span of profiling/trace.py (``step.auto_reset``,
@@ -28,13 +28,26 @@ Each phase runs in a span of profiling/trace.py (``step.auto_reset``,
 make_step, the first reset and the first step are the set-up spans
 ``setup.make_reset``, ``setup.make_step``, ``setup.reset`` and
 ``setup.first_step``, and every later step call is counted as ``step.calls``.
+
+On a CUDA device, a program that graphs_ok admits (the pure-move waves and
+no phase or query that reads the host or draws) replays its step as CUDA
+graphs, one or more per phase span, captured once in the set-up span
+``setup.graph_capture`` (engine/step_graphs.py): the same kernels and
+results, each replayed call counted as ``step.graph_replays``. **On that
+path the state and outputs a step returns are the graphs' own buffers,
+valid until the step's next call** (as the carried observation buffer
+always is); the step writes them in place, and a caller that keeps one
+across calls clones it. make_step's docstring says which calls replay.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from mettagrid_tpu_torch.engine import step_graphs
 from mettagrid_tpu_torch.engine.actions import make_action_phase
 from mettagrid_tpu_torch.engine.actions_fast import (
     batch_gridless,
@@ -48,6 +61,7 @@ from mettagrid_tpu_torch.engine.events import make_event_phase
 from mettagrid_tpu_torch.engine.exec import Ctx, MtThread, RankDraws
 from mettagrid_tpu_torch.engine.handlers import recompute_materialized, try_apply
 from mettagrid_tpu_torch.engine.init import EnvInit, stat_dims
+from mettagrid_tpu_torch.engine.ir import CompiledQuery, reaches
 from mettagrid_tpu_torch.engine.mt19937 import mt_init, shuffle_perm
 from mettagrid_tpu_torch.engine.mutfields import POOL_FIELDS, maybe_written_pool_fields
 from mettagrid_tpu_torch.engine.obs import build_static_bg, make_obs_fn, static_background_ok
@@ -86,13 +100,17 @@ _DEAD_AT_RESET_MERGE = (
 )
 
 
-def _device_init(init: EnvInit, device) -> dict:
-    """Upload the map pool to the device once (P maps)."""
-    return {
+def _device_init(program: EngineProgram, init: EnvInit, device) -> dict:
+    """Upload the map pool (P maps) and the tables of the stats a fresh
+    state starts touched to the device once."""
+    pool = {
         k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
         for k, v in init.__dict__.items()
         if isinstance(v, np.ndarray)
     }
+    for name in ("agent_stats_init_touched", "game_stats_init_touched"):
+        pool[name] = torch.from_numpy(np.asarray(getattr(program, name))).to(device)
+    return pool
 
 
 def _make_obs_fn_for(program: EngineProgram, init: EnvInit, device, obs_tail: str, draws):
@@ -117,9 +135,10 @@ def _fresh_state_from_pool(
     mt: torch.Tensor = None,
     draws: RankDraws = None,
 ) -> EnvState:
-    """Per-env initial state gathered from the map pool (map_idx: int32[E]),
-    with the materialized queries' tags computed on it (mettagrid_c.cpp:163,
-    QuerySystem::compute_all; reference step.py:237-242).
+    """Per-env initial state gathered from the map pool (map_idx: int32[E];
+    ``pool`` as _device_init gives it), with the materialized queries' tags
+    computed on it (mettagrid_c.cpp:163, QuerySystem::compute_all;
+    reference step.py:237-242).
 
     init_token_stats: optional f32[P, 3] (written, dropped, free) token sums
     of each pooled map's construction observation (mettagrid_c.cpp:271-319,
@@ -154,9 +173,7 @@ def _fresh_state_from_pool(
         if R:
             a0 = int(program.stat_inv_amount[0])
             agent_stats0[..., a0 : a0 + R] = obj_inv0[:, :A].to(torch.float32)
-    # A blocking copy from host memory: the host waits for the device here.
-    with trace.host_sync("auto_reset.agent_touched_copy"):
-        init_t = torch.from_numpy(np.asarray(program.agent_stats_init_touched)).to(dev)  # [n_cfg, Sa]
+    init_t = pool["agent_stats_init_touched"]  # [n_cfg, Sa]
     if init_t.shape[0] == 1:
         agent_touched0 = init_t[0].expand(E, A, init_t.shape[1]).clone()
     else:
@@ -167,8 +184,7 @@ def _fresh_state_from_pool(
         game_stats0[:, program.stat_tokens_written] = pts[:, 0]
         game_stats0[:, program.stat_tokens_dropped] = pts[:, 1]
         game_stats0[:, program.stat_tokens_free] = pts[:, 2]
-    with trace.host_sync("auto_reset.game_touched_copy"):
-        game_touched0 = torch.from_numpy(np.asarray(program.game_stats_init_touched)).to(dev).expand(E, Sg).clone()
+    game_touched0 = pool["game_stats_init_touched"].expand(E, Sg).clone()
     N = pool["obj_type"].shape[1]
     state = EnvState(
         grid=pick("grid"),
@@ -237,7 +253,7 @@ def make_reset(program: EngineProgram, init: EnvInit, num_envs: int, reference_r
     or "v3" (obs.make_obs_fn). ``device`` defaults to CUDA and raises when
     there is none; pass device="cpu" for the plain path."""
     dev = resolve_device(device)
-    pool = _device_init(init, dev)
+    pool = _device_init(program, init, dev)
     P = init.pool_size
     generator = torch.Generator(device=dev)
     draws = RankDraws(generator)
@@ -465,6 +481,78 @@ def _pool_token_stats(program: EngineProgram, pool: dict, obs_fn, P: int, draws:
     ).to(torch.float32)
 
 
+def _wave_kinds(program: EngineProgram, action_mode: str, reference_rng: bool) -> tuple:
+    """(wave phase, pure-move waves): the action phase as the reference
+    chooses it (step.py:595-629)."""
+    auto = action_mode == "auto"
+    acts_consume = reference_rng and actions_consume_rng(program)
+    use_fast = (action_mode in ("fast", "pure") or (auto and fast_mode_ok(program))) and not acts_consume
+    return use_fast, use_fast and (action_mode == "pure" or (auto and pure_move_ok(program)))
+
+
+def graphs_ok(program: EngineProgram, device, action_mode: str = "auto", reference_rng: bool = False) -> bool:
+    """True when make_step(program, device=device, action_mode=...,
+    reference_rng=...) replays its step as CUDA graphs: the device is CUDA,
+    the action phase is the pure-move waves (whose only host reads are the
+    ends of its loop, which the graphs keep), the program has no event,
+    agent on_tick, AOE, territory or game on_tick phase (their loops read
+    the host) and no order_by=random query (it draws from the generator),
+    and the reference-RNG step is off (its twin's loops read the host)."""
+    if torch.device(device).type != "cuda" or reference_rng:
+        return False
+    if not _wave_kinds(program, action_mode, reference_rng)[1]:
+        return False
+    if program.events or program.aoe_specs or program.territories or program.game_on_tick is not None:
+        return False
+    if any(h is not None for h in program.on_tick_handlers):
+        return False
+    return not reaches(program, lambda node: isinstance(node, CompiledQuery) and node.order_random)
+
+
+def _graph_step(run, external_perm: bool, draws_maps: bool):
+    """make_step's step on the graph path: ``run`` (the body) eager on the
+    first call and on calls that draw from the generator; captured as CUDA
+    graphs (engine/step_graphs.py) before the first other call after it, in
+    the set-up span ``setup.graph_capture``, then replayed by every call the
+    graphs take, each counted as ``step.graph_replays``."""
+    graphs = None  # StepGraphs once captured; False where the body reads the host
+    calls = 0
+
+    def arguments(actions, vibe_actions, perm_in, obs_buf, reset_maps, event_ranks, query_ranks) -> tuple:
+        inputs = dict(actions=actions, vibe_actions=vibe_actions, perm_in=perm_in, reset_maps=reset_maps)
+        key = (perm_in is None, reset_maps is None, obs_buf is None)
+        fed = event_ranks is None and query_ranks is None
+        drawn = not (external_perm and perm_in is not None) or (draws_maps and reset_maps is None)
+        return inputs, key, fed and not drawn
+
+    def dispatch(state, actions, vibe_actions, perm_in=None, obs_buf=None, reset_maps=None, event_ranks=None,
+                 query_ranks=None):
+        inputs, key, capturable = arguments(actions, vibe_actions, perm_in, obs_buf, reset_maps, event_ranks,
+                                            query_ranks)
+        if capturable and graphs and graphs.takes(state, inputs, obs_buf, key):
+            trace.count("step.graph_replays")
+            return graphs.replay(state, inputs, obs_buf)
+        return run(state, actions, vibe_actions, perm_in, obs_buf, reset_maps, event_ranks, query_ranks)
+
+    counted = trace.program_step(dispatch)
+
+    @functools.wraps(counted)
+    def step(state, actions, vibe_actions, perm_in=None, obs_buf=None, reset_maps=None, event_ranks=None,
+             query_ranks=None):
+        nonlocal graphs, calls
+        calls += 1
+        if graphs is None and calls > 1:
+            inputs, key, capturable = arguments(actions, vibe_actions, perm_in, obs_buf, reset_maps, event_ranks,
+                                                query_ranks)
+            if capturable:
+                with trace.span("setup.graph_capture"):
+                    given = {k: v for k, v in inputs.items() if v is not None}
+                    graphs = step_graphs.capture(run, state, given, obs_buf, key) or False
+        return counted(state, actions, vibe_actions, perm_in, obs_buf, reset_maps, event_ranks, query_ranks)
+
+    return step
+
+
 @trace.setup_span("setup.make_step")
 def make_step(
     program: EngineProgram,
@@ -542,6 +630,20 @@ def make_step(
     from ``generator``, as the reference draws them from its own keys and
     not from the twin.
 
+    CUDA graphs: where graphs_ok holds (a CUDA device, the pure-move
+    waves, no phase or query that reads the host or draws), the step is
+    captured as CUDA graphs on its first call after the first that draws
+    nothing from ``generator`` (the agent order given with external_perm,
+    the reset maps given or a pool of one map, no event or query ranks), and
+    every later such call replays them (engine/step_graphs.py): the same
+    kernels and results, a few graph launches in place of some 440 kernel
+    launches. **Then the state and outputs a step returns are its own
+    buffers, valid until its next call**, as the observation buffer is; a
+    caller that keeps them across calls clones them. A call given an
+    observation buffer other than the step's own gets the observations
+    written into it, as on the eager path. A call that draws, or whose
+    tensors differ in shape from the captured ones, runs eagerly.
+
     ``device`` defaults to CUDA and raises when there is none; pass
     device="cpu" for the plain path."""
     # Under reference_rng, the constructs whose draws the twin cannot place in
@@ -554,7 +656,7 @@ def make_step(
     if reference_rng and external_perm:
         raise ValueError("reference_rng draws the agent order from the MT19937 twin; it excludes external_perm")
     dev = resolve_device(device)
-    pool = _device_init(init, dev)
+    pool = _device_init(program, init, dev)
     P = init.pool_size
     A = program.num_agents
 
@@ -564,11 +666,8 @@ def make_step(
     # order_by=random outside the twin's reach draws from the generator.
     draws = RankDraws(generator)
 
-    # The action phase as the reference chooses it (step.py:595-629).
     acts_consume = reference_rng and actions_consume_rng(program)
-    auto = action_mode == "auto"
-    use_fast = (action_mode in ("fast", "pure") or (auto and fast_mode_ok(program))) and not acts_consume
-    use_pure = use_fast and (action_mode == "pure" or (auto and pure_move_ok(program)))
+    use_fast, use_pure = _wave_kinds(program, action_mode, reference_rng)
     # A program that reads the grid (a raycast) keeps its agent layer
     # current; the reference's lazy grid ignores queries (ROADMAP Queue 3).
     lazy_grid = use_pure and static_background_ok(program) and not reads_grid(program)
@@ -609,7 +708,7 @@ def make_step(
             program, pool, torch.zeros((1,), dtype=torch.int32, device=dev),
             torch.zeros((1, 2), dtype=torch.int64, device=dev), init_token_stats=pool_token_stats, draws=draws,
         )
-    game_touched_row = torch.from_numpy(np.asarray(program.game_stats_init_touched)).to(dev)
+    game_touched_row = pool["game_stats_init_touched"]
     auto_row = None
     if program.stats_compact and program.num_auto_lanes:
         row = np.zeros((program.num_auto_lanes,), dtype=np.int32)
@@ -651,8 +750,11 @@ def make_step(
             upd[f] = mrg(getattr(fresh, f), getattr(state, f))
         return state._replace(**upd)
 
-    def step(state: EnvState, actions, vibe_actions, perm_in=None, obs_buf=None, reset_maps=None, event_ranks=None,
-             query_ranks=None):
+    def run(state: EnvState, actions, vibe_actions, perm_in=None, obs_buf=None, reset_maps=None, event_ranks=None,
+            query_ranks=None, phase=trace.span):
+        """The step's body, each phase inside ``phase(name)``: trace.span
+        when it runs, the recorder's phase when it is captured
+        (engine/step_graphs.py)."""
         E = actions.shape[0]
         if reference_rng and event_ranks is not None:
             raise ValueError("reference_rng draws the events' shuffles from the MT19937 twin; pass no event_ranks")
@@ -660,10 +762,10 @@ def make_step(
             raise ValueError("reference_rng draws the queries' shuffles from the MT19937 twin; pass no query_ranks")
         draws.start_step(query_ranks)
         if auto_reset:
-            with trace.span("step.auto_reset"):
+            with phase("step.auto_reset"):
                 state = auto_reset_merge(state, reset_maps)
 
-        with trace.span("step.actions"):
+        with phase("step.actions"):
             # --- agent order: perm[e, i] = agent acting at rank i ---
             if reference_rng:
                 # libstdc++'s std::shuffle of the agents from each env's twin
@@ -695,7 +797,7 @@ def make_step(
 
         # --- events (mettagrid_c.cpp:1008-1011) ---
         if event_phase is not None:
-            with trace.span("step.events"):
+            with phase("step.events"):
                 if event_ranks is None and not reference_rng:
                     N = state.obj_type.shape[1]
                     event_ranks = torch.rand((E, event_phase.num_rank_rows, N), generator=generator, device=dev)
@@ -703,41 +805,39 @@ def make_step(
 
         # --- per-agent on_tick (mettagrid_c.cpp:1018-1024) ---
         if agent_tick_phase is not None:
-            with trace.span("step.agent_tick"):
+            with phase("step.agent_tick"):
                 state = agent_tick_phase(state, draws)
 
         # --- AOE effects, then territory effects (mettagrid_c.cpp:1031-1042) ---
         if aoe_phase is not None:
-            with trace.span("step.aoe"):
+            with phase("step.aoe"):
                 state = aoe_phase(state, draws)
         if territory_phase is not None:
-            with trace.span("step.territory"):
+            with phase("step.territory"):
                 state = territory_phase(state, draws)
 
         # --- game on_tick (mettagrid_c.cpp:1050-1056) ---
         if game_tick_phase is not None:
-            with trace.span("step.game_tick"):
+            with phase("step.game_tick"):
                 state = game_tick_phase(state, draws)
 
         # --- observations (before rewards, like the reference) ---
-        with trace.span("step.obs"):
+        with phase("step.obs"):
             obs, attempted = obs_fn(state, obs_buf=obs_buf)
-        with trace.span("step.stats"):
+        with phase("step.stats"):
             state = coverage_phase(state)
             state = visited_phase(state)
             state = _token_stat_update(program, state, attempted)
 
-        # --- rewards ---
-        with trace.span("step.rewards"):
+        # --- rewards, then truncation (mettagrid_c.cpp:1086-1096) ---
+        with phase("step.rewards"):
             state = reward_phase(state, draws)
-
-        # --- truncation (mettagrid_c.cpp:1086-1096) ---
-        if program.max_steps > 0:
-            over = (state.step_count >= program.max_steps)[:, None].expand_as(state.terminals)
-            if program.episode_truncates:
-                state = state._replace(truncations=state.truncations | over)
-            else:
-                state = state._replace(terminals=state.terminals | over)
+            if program.max_steps > 0:
+                over = (state.step_count >= program.max_steps)[:, None].expand_as(state.terminals)
+                if program.episode_truncates:
+                    state = state._replace(truncations=state.truncations | over)
+                else:
+                    state = state._replace(terminals=state.terminals | over)
 
         out = StepOutputs(
             observations=obs,
@@ -749,7 +849,10 @@ def make_step(
         )
         return state, out
 
-    step = trace.program_step(step)
+    if not graphs_ok(program, dev, action_mode, reference_rng):
+        step = trace.program_step(run)
+    else:
+        step = _graph_step(run, external_perm, auto_reset and P > 1)
     step.obs_fn = obs_fn
     step.action_phase = action_phase
     step.action_phase_kind = "waves" if use_fast else "sequential"

@@ -42,7 +42,7 @@ import torch
 import torch.distributed as dist
 
 from mettagrid_tpu_torch.engine.interop import state_from_numpy, state_to_numpy
-from mettagrid_tpu_torch.engine.state import EnvState, resolve_device
+from mettagrid_tpu_torch.engine.state import EnvState, StepOutputs, resolve_device
 from mettagrid_tpu_torch.parallel.dryrun import POOL, build_env, fed_draws, train_losses_multichip
 from mettagrid_tpu_torch.parallel.mesh import data_rows, gather_batch, make_mesh, rank_device, replicate, shard_batch
 from mettagrid_tpu_torch.parallel.train import TrainState, adam, make_train_step, trainable_parameters
@@ -111,10 +111,18 @@ def _require(ok: bool, message: str) -> None:
         raise AssertionError(message)
 
 
+def _own(result: tuple) -> tuple:
+    """A step's (state, outputs), copied out of the step's buffers (on the
+    CUDA graph path they are rewritten by its next call, engine/step.py)."""
+    state, out = result
+    return EnvState(*(t.clone() for t in state)), StepOutputs(*(t.clone() for t in out))
+
+
 def engine_parity(mesh, num_envs: int, num_agents: int):
     """Part 1; returns the gathered state, observations and rewards, and
     int64[world, 3]: each rank's first and past-last row and its sharded
-    observations' rows."""
+    observations' rows. One step function runs both batches in turns, so
+    each keeps a copy of its state across the other's step."""
     device = rank_device(mesh)
     program, reset, step = build_env(num_agents, num_envs, device)
     full, out_full = reset(0)
@@ -127,8 +135,8 @@ def engine_parity(mesh, num_envs: int, num_agents: int):
         perm, maps = fed_draws(rng, num_envs, num_agents, POOL)
         vibes = np.zeros_like(acts)
         g = [torch.from_numpy(x).to(device) for x in (acts, vibes, perm)]
-        full, out_full = step(full, *g, reset_maps=torch.from_numpy(maps).to(device))
-        state, out = step(state, *shard_batch([acts, vibes, perm], mesh), reset_maps=shard_batch(maps, mesh))
+        full, out_full = _own(step(full, *g, reset_maps=torch.from_numpy(maps).to(device)))
+        state, out = _own(step(state, *shard_batch([acts, vibes, perm], mesh), reset_maps=shard_batch(maps, mesh)))
     for name, x in list(state._asdict().items()) + list(out._asdict().items()):
         _require(x.shape[0] == rows.stop - rows.start and x.device == device,
                  f"the sharded step's {name} is {tuple(x.shape)} on {x.device}, not this rank's rows on {device}")

@@ -14,12 +14,12 @@ without a cycle):
   call launches, nothing more; it counts ``host_syncs`` and
   ``host_syncs.<site>`` and adds the wait to the totals as the span
   ``sync.<site>``, a child of the enclosing span. It opens no profiler range.
-- ``host_sync(site)``: a context manager counted and timed as ``host_read``
-  is, around a call that waits for the device without reading a value (a
-  blocking copy from host memory to it).
 - ``program_step(fn)``, ``first_call(fn, name)``, ``setup_span(name)``: the
   wrappers engine/step.py puts around make_reset, make_step and the
   functions they return.
+- ``capturing()``: a context manager inside which ``host_read`` raises
+  ``CaptureBreak`` before touching the device (a CUDA graph cannot hold a
+  host read; engine/step_graphs.py captures the step inside it).
 
 **Totals** are aggregated per name (a count, host ns, and host ns in child
 spans), so memory does not grow. The per-step totals are kept only inside a
@@ -42,6 +42,7 @@ The recorder keeps one process-wide state and assumes that one thread steps.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 
@@ -60,6 +61,22 @@ _log: list = []  # (name, parent, start_ns, end_ns)
 _stack: list = []  # the open spans, innermost last
 _sites: dict = {}  # site -> (span name, counter name)
 _in_step = 0  # depth of counted step calls
+_capturing = False  # inside capturing(): host reads raise
+
+
+class CaptureBreak(RuntimeError):
+    """A host read inside ``capturing()``."""
+
+
+@contextlib.contextmanager
+def capturing():
+    """Host reads raise ``CaptureBreak`` inside (see the module doc)."""
+    global _capturing
+    saved, _capturing = _capturing, True
+    try:
+        yield
+    finally:
+        _capturing = saved
 
 
 def _add(name: str, n: int, ns: int = 0, child_ns: int = 0) -> None:
@@ -141,6 +158,8 @@ def _synced(names: tuple, start: int, end: int, kept: bool) -> None:
 def host_read(x, site: str, cast=bool):
     """``cast(x)`` (bool by default; int for a count) of the device value x,
     counted and timed as the host read ``site``."""
+    if _capturing:
+        raise CaptureBreak(site)
     logged = _profiler_enabled()
     kept = _in_step and not logged
     if not (kept or logged):
@@ -150,30 +169,6 @@ def host_read(x, site: str, cast=bool):
     value = cast(x)
     _synced(names, start, _now(), kept)
     return value
-
-
-class _Sync:
-    __slots__ = ("names", "kept", "logged", "start")
-
-    def __init__(self, site: str):
-        self.names = _site(site)
-
-    def __enter__(self):
-        self.logged = _profiler_enabled()
-        self.kept = _in_step > 0 and not self.logged
-        self.start = _now()
-        return self
-
-    def __exit__(self, *exc):
-        if self.kept or self.logged:
-            _synced(self.names, self.start, _now(), self.kept)
-        return False
-
-
-def host_sync(site: str) -> _Sync:
-    """A context manager counting and timing the call inside it as the host
-    sync ``site`` (see host_read)."""
-    return _Sync(site)
 
 
 def program_step(fn):

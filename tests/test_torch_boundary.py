@@ -336,7 +336,7 @@ def test_b1_wrapper_takes_plain_version_on_cpu():
 
     program, init = _small_arena()
     fn = obs.make_obs_fn(program, obs.build_static_bg(program, init, "cpu"))
-    pool = _device_init(init, "cpu")
+    pool = _device_init(program, init, "cpu")
     state = _fresh_state_from_pool(program, pool, torch.zeros(8, dtype=torch.int32), torch.zeros((8, 2), dtype=torch.int64))
     args = fn.tail_inputs(state)
     before = obs_tail_static_v2.launches
@@ -385,7 +385,7 @@ def test_b2_wrapper_takes_plain_version_on_cpu():
 
     program, init = _small_general()
     fn = obs.make_obs_fn(program, None, "cpu")
-    pool = _device_init(init, "cpu")
+    pool = _device_init(program, init, "cpu")
     state = _fresh_state_from_pool(program, pool, torch.zeros(8, dtype=torch.int32), torch.zeros((8, 2), dtype=torch.int64))
     args = fn.tail_inputs(state)
     before = obs_tail_dynobj_v2.launches
@@ -444,7 +444,7 @@ def test_v3_wrappers_take_plain_version_on_cpu(background):
     assert fn.route == ("B6a" if background == "static" else "B6b")
     mod = __import__(f"mettagrid_tpu_torch.engine.kernels.{fn.tail.__name__}", fromlist=["_"])
     plain = getattr(mod, f"{fn.tail.__name__}_ref")
-    pool = _device_init(init, "cpu")
+    pool = _device_init(program, init, "cpu")
     state = _fresh_state_from_pool(program, pool, torch.zeros(8, dtype=torch.int32), torch.zeros((8, 2), dtype=torch.int64))
     args = fn.tail_inputs(state)
     before = fn.tail.launches
