@@ -681,7 +681,7 @@ def make_step(
     event_phase = make_event_phase(program, reference_rng)
     agent_tick_phase = make_agent_tick_phase(program, reference_rng)
     game_tick_phase = make_game_tick_phase(program, reference_rng)
-    aoe_phase = make_aoe_phase(program)
+    aoe_phase = make_aoe_phase(program, init)
     territory_phase = make_territory_phase(program)
     obs_fn = _make_obs_fn_for(program, init, dev, obs_tail, draws)
     reward_phase = make_reward_phase(program)

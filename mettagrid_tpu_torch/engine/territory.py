@@ -68,6 +68,7 @@ def territory_scores(program: EngineProgram, state: EnvState, ti: int, pr: torch
         src_tag = torch.where(state.obj_tags[:, :, tag_ids[i]], i, src_tag)
     emits = state.obj_alive & (strength > 0) & (src_tag >= 0)
     M = trace.host_read(emits.sum(dim=1).max(), "territory.emitters", int) if E else 0  # the one host read
+    trace.count("territory.points", E * P * M)  # (point, emitter) pairs scored
     if M == 0:
         return torch.zeros((E, P, Tt), dtype=torch.int32, device=pr.device), tag_ids
     # The emitting slots first, in slot order; the sums are exact in any order.

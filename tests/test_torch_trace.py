@@ -5,7 +5,9 @@ waves run past their two unrolled waves) is stepped with random moves. The
 tests hold the counts to the wave loop's own rule, the log to the
 profiler's clock, the totals and the log to the profiler switch, the
 set-up spans to one build, and the step-path modules of engine/ to reading
-device values only through ``trace.host_read``. The arithmetic of
+device values only through ``trace.host_read``. A small territory program
+(the bench variant at 4 envs) holds the counters ``aoe.pairs`` and
+``territory.points`` to the shapes they count and to adding no host read. The arithmetic of
 profiling/phase_timing.py that tools/profile_step.py reports (``per_step``,
 ``innermost_segments``, ``idle_by_span``) is checked on hand-made logs.
 """
@@ -262,3 +264,76 @@ def test_idle_gaps_go_to_the_innermost_span():
     assert gaps == {"step.actions": pytest.approx(28e-9), "sync.actions.pure_waves": pytest.approx(5e-9),
                     "step": pytest.approx(15e-9), "step.obs": pytest.approx(20e-9),
                     "outside program spans": pytest.approx(10e-9)}
+
+
+TE = 4  # envs of the territory program
+COUNTERS = ("aoe.pairs", "territory.points")
+
+
+@pytest.fixture(scope="module")
+def territory_built():
+    from mettagrid_tpu_torch.tools import bench_run
+
+    cfg = bench_run.make_territory_cfg(A)
+    program, init = bench_run.build_pool(cfg, 2)
+    reset = tengine.make_reset(program, init, TE, device="cpu")
+    step = tengine.make_step(program, init, auto_reset=True, device="cpu")
+    state, out = reset(0)
+    rng = np.random.default_rng(1)
+    n_actions = len(program.action_names)
+
+    def draw():
+        return torch.from_numpy(rng.integers(0, n_actions, (TE, A), dtype=np.int32))
+
+    zeros = torch.zeros((TE, A), dtype=torch.int32)
+    state, out = step(state, draw(), zeros)  # the first call is set-up
+    b = dict(program=program, step=step, state=state, out=out, draw=draw, zeros=zeros)
+
+    def one():
+        before = trace.snapshot()
+        b["state"], b["out"] = b["step"](b["state"], b["draw"](), b["zeros"], None, b["out"].observations)
+        after = trace.snapshot()
+        return {k: _count(after, k) - _count(before, k) for k in after}
+
+    b["one"] = one
+    return b
+
+
+def test_territory_counters_count_the_stated_shapes(territory_built):
+    b = territory_built
+    p, state = b["program"], b["state"]
+    d = b["one"]()
+    E, N = state.obj_type.shape
+    H, W = state.grid.shape[1:]
+    junctions = [i for i, name in enumerate(p.type_names) if name.startswith("junction_")]
+    emitters = int((torch.isin(state.obj_type, torch.tensor(junctions)) & state.obj_alive).sum(1).max())
+    assert len(p.aoe_specs) == 2 and emitters == 4
+    assert d["aoe.pairs"] == len(p.aoe_specs) * E * N * A
+    # The agents' cells in the territory phase, every cell for the AOE mask, each times the emitters.
+    assert d["territory.points"] == E * (A + H * W) * emitters
+
+
+def test_territory_counters_are_absent_on_the_arena(built):
+    before = trace.snapshot()
+    _steps(built, 2)
+    after = trace.snapshot()
+    assert _count(after, "step.calls") - _count(before, "step.calls") == 2
+    assert all(_count(after, c) == _count(before, c) for c in COUNTERS)
+
+
+def test_territory_counters_add_no_host_read(territory_built, monkeypatch):
+    b = territory_built
+    counted = b["one"]()
+    assert all(counted[c] > 0 for c in COUNTERS)
+    real = trace.count
+    monkeypatch.setattr(trace, "count", lambda name, n=1: None if name in COUNTERS else real(name, n))
+    silent = b["one"]()
+    assert not set(COUNTERS) & {k for k, v in silent.items() if v}
+
+    def phase_reads(d):  # the action phase's wave reads follow the drawn moves
+        return {k: v for k, v in d.items() if k.startswith("host_syncs.") and not k.startswith("host_syncs.actions.")}
+
+    # The phase's and the mask's emitter reads, with the counters or without, and nothing more.
+    assert phase_reads(counted) == phase_reads(silent) == {"host_syncs.territory.emitters": 2}
+    for d in (counted, silent):
+        assert d["host_syncs"] == sum(v for k, v in d.items() if k.startswith("host_syncs."))
