@@ -105,7 +105,7 @@ def make_aoe_phase(program: EngineProgram, init: EnvInit):
                 target=agt_slots,
                 target_r=state.obj_r[:, None, :A].expand(E, N, A),
                 target_c=state.obj_c[:, None, :A].expand(E, N, A),
-                distance=torch.zeros((E, N, A), dtype=torch.int32, device=dev),
+                distance=torch.zeros((), dtype=torch.int32, device=dev).expand(E, N, A),
                 timestep=state.step_count,
             )
             passes = cand & eval_filters(program, state, ctx, spec.filters, draws)

@@ -3,8 +3,9 @@
 Counterpart of the reference's engine/obs.py (make_obs_fn picks a route
 from the program's static shapes and the caller's ``obs_tail``):
 
-* static background (the arena and combat presets): every non-agent object is
-  provably inert (static_background_ok), so its token image is built once per
+* static background (the arena and combat presets, and AOE and territories
+  that write only agents): every non-agent object is provably inert
+  (static_obs_background_ok), so its token image is built once per
   pooled map, and each step encodes only the agents' tokens. Kernel B1
   (engine/kernels/obs_tail_static_v2.py) runs the v2 tail over the pooled
   image, kernel B4 (obs_tail_static_v1.py) the v1 tail;
@@ -19,7 +20,8 @@ from the program's static shapes and the caller's ``obs_tail``):
 * the non-fused path, for configs no fused tail takes (the AOE mask, or
   window rows wider than 128 lanes): each env's cell image (the pooled map
   plus the agents, or every object) and, with the mask, each cell's winning
-  territory tag, interleaved into one padded image; kernel B7
+  territory tag (once per pooled map where no agent emits territory),
+  interleaved into one padded image; kernel B7
   (window_slices.py) cuts every agent's window out of it in Manhattan order,
   stage 4 builds the candidate words here, and kernel B8 (compact_rows.py)
   compacts them to the token budget;
@@ -42,6 +44,8 @@ in Manhattan order; globals first.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
@@ -59,6 +63,7 @@ from mettagrid_tpu_torch.engine.obs_caps import compute_obs_caps, max_tokens_per
 from mettagrid_tpu_torch.engine.program import EMPTY_TOKEN_BYTE, GLOBAL_LOCATION, EngineProgram, pack_coordinate
 from mettagrid_tpu_torch.engine.state import EnvState, resolve_device
 from mettagrid_tpu_torch.engine.territory import check_territories, winning_tags
+from mettagrid_tpu_torch.profiling import trace
 
 # Rows of the window the reference's fused tail stages; its padded image
 # height is sized from it, and the port keeps that geometry (window OH <= 16).
@@ -120,11 +125,32 @@ def _mutation_bg_inert(program: EngineProgram, m) -> bool:
     return ok and all(_mutation_bg_inert(program, s) for s in m.on_success)
 
 
+def _mutation_writes_target_agent(m) -> bool:
+    """True when this mutation (and its on_success chain) writes nothing but
+    its TARGET and stats, in an AOE or territory context: there the target is
+    always an agent (aoe.py, territory.py) and the actor is the AOE's source
+    or the territory's proxy, so _mutation_bg_inert's "the actor is the
+    acting agent" does not hold. WHITELIST: any write of the actor, and any
+    kind not listed, returns False."""
+    k = m.kind
+    if k == "stats":
+        ok = True  # stats are agent/game arrays, never object tokens
+    elif k in ("resource_delta", "change_vibe", "add_tag", "remove_tag", "remove_tags_with_prefix",
+               "clear_inventory"):
+        ok = not m.target_is_actor
+    elif k == "set_game_value":
+        ok = m.write_rid < 0 or not m.target_is_actor
+    else:
+        ok = False
+    return ok and all(_mutation_writes_target_agent(s) for s in m.on_success)
+
+
 def background_inert(program: EngineProgram) -> bool:
     """True when every reachable ACTION mutation provably writes only agent
-    state (filters/queries are read-only). With events/AOE/territory/ticks
-    excluded by static_background_ok and usable types absent (on_use chains
-    unreachable), move handlers are the only mutation sites."""
+    state (filters/queries are read-only). With events and ticks excluded by
+    static_obs_background_ok, AOE and territory mutations checked there on
+    their own, and usable types absent (on_use chains unreachable), move
+    handlers are the only other mutation sites."""
 
     from mettagrid_tpu_torch.engine.ir import CompiledHandler
 
@@ -139,27 +165,56 @@ def background_inert(program: EngineProgram) -> bool:
     return all(handler_ok(mh.handler) for mh in program.move_handlers)
 
 
-def static_background_ok(program: EngineProgram) -> bool:
+def static_obs_background_ok(program: EngineProgram) -> bool:
     """True when every non-agent object is provably inert for the whole
     episode — tokens, position, and aliveness can never change — so its cell
-    image can be precomputed once per pooled map and gathered per env.
+    image can be precomputed once per pooled map and gathered per env (the
+    observations' gate).
 
     Sufficient conditions: every reachable action mutation writes only agent
     state — pure relocation (pure_move_ok) or the broader background_inert
-    whitelist (e.g. vibe-gated DirectAttack arenas qualify) — and there are
-    no events / AOE / territories / on_tick handlers / materialized-query
-    recomputes. change_vibe only writes agent vibes.
+    whitelist (e.g. vibe-gated DirectAttack arenas qualify); every AOE
+    spec's mutations and every territory's enter, exit and presence
+    handlers write only their target, an agent (AOE presence deltas land on
+    agents too); and there are no events / on_tick handlers /
+    materialized-query recomputes. change_vibe only writes agent vibes.
+    The JAX engine's static_background_ok refuses any AOE or territory; the
+    port widens it here.
     """
     from mettagrid_tpu_torch.engine.actions_fast import pure_move_ok
 
+    territory_handlers = [h for t in program.territories for h in (t.on_enter, t.on_exit, t.presence) if h]
     return (
         (pure_move_ok(program) or background_inert(program))
         and not program.events
-        and not program.aoe_specs
-        and not program.territories
         and program.game_on_tick is None
         and all(h is None for h in program.on_tick_handlers)
         and not program.materialized
+        and all(_mutation_writes_target_agent(m) for s in program.aoe_specs for m in s.mutations)
+        and all(_mutation_writes_target_agent(m) for h in territory_handlers for m in h.mutations)
+    )
+
+
+def static_background_ok(program: EngineProgram) -> bool:
+    """static_obs_background_ok without AOE or territories: the gate of the
+    action phase's lazy grid (engine/step.py), which keeps the reference's."""
+    return static_obs_background_ok(program) and not program.aoe_specs and not program.territories
+
+
+def _has_aoe_mask(program: EngineProgram) -> bool:
+    return program.feature_ids.aoe_mask != 0 and bool(program.territories)
+
+
+def static_mask_ok(program: EngineProgram) -> bool:
+    """True when each cell's AOE-mask source, its winning territory tag, is
+    a function of the pooled map alone: the observations carry the mask,
+    the background is static (static_obs_background_ok) and no agent type
+    has territory strength, so every emitter is an inert object."""
+    is_agent = np.asarray(program.type_is_agent, dtype=bool)
+    return (
+        _has_aoe_mask(program)
+        and static_obs_background_ok(program)
+        and not any((np.asarray(t.type_strength)[is_agent] > 0).any() for t in program.territories)
     )
 
 
@@ -191,7 +246,8 @@ def make_stage1(program: EngineProgram):
 
     stage1(tid, vibe, tags, inv, alive, is_agent, group, slot_ids), each
     [B, M, ...], returns (tok int32[B, M, S], cnt int32[B, M]): the first cnt
-    slots hold packed ``feat << 8 | value`` words, the rest 0."""
+    slots hold packed ``feat << 8 | value`` words, the rest 0. Each call
+    inside a step counts its B·M slots as ``obs.stage1_slots``."""
     R = program.num_resources
     P = program.num_inv_tokens
     n_tags = program.num_tags
@@ -213,6 +269,7 @@ def make_stage1(program: EngineProgram):
 
     def stage1(tid, vibe, tags, inv, alive, is_agent, group, slot_ids):
         B, M = tid.shape
+        trace.count("obs.stage1_slots", B * M)
         t = consts(tid.device)
         vals = [torch.arange(n_tags, dtype=torch.int32, device=tid.device).expand(B, M, n_tags), vibe[..., None]]
         oks = [tags, (vibe != 0)[..., None]]
@@ -240,17 +297,16 @@ def make_stage1(program: EngineProgram):
     return stage1
 
 
-def _scatter_cells(tok, cnt, alive, obj_r, obj_c, H: int, W: int, base=None) -> torch.Tensor:
+def _scatter_cells(tok, cnt, alive, obj_r, obj_c, H: int, W: int) -> torch.Tensor:
     """Stage 2 (the reference's make_cell_image_fn._cell_image, in integer
     ops): every object's S words and its token count summed into its cell of
-    int32[B, H+1, W, S+1]; dead objects land on the padding row H. With
-    ``base`` (an image of that shape), the sums are added to it in place."""
+    int32[B, H+1, W, S+1]; dead objects land on the padding row H."""
     B, M, S = tok.shape
     dev = tok.device
     rr = torch.where(alive, obj_r, H).long()
     cc = torch.where(alive, obj_c, 0).long()
     bb = torch.arange(B, device=dev)[:, None].expand(B, M)
-    img = torch.zeros((B, H + 1, W, S + 1), dtype=torch.int32, device=dev) if base is None else base
+    img = torch.zeros((B, H + 1, W, S + 1), dtype=torch.int32, device=dev)
     img.index_put_((bb, rr, cc), torch.cat([tok, cnt[..., None]], dim=-1), accumulate=True)
     return img
 
@@ -258,7 +314,7 @@ def _scatter_cells(tok, cnt, alive, obj_r, obj_c, H: int, W: int, base=None) -> 
 def build_static_bg(program: EngineProgram, init, device=None) -> torch.Tensor:
     """The static (non-agent) cell image of every pooled map:
     int32[P, H+1, W, S+1] (S token words, then the token count; dead objects
-    land on the padding row H). Requires static_background_ok(program).
+    land on the padding row H). Requires static_obs_background_ok(program).
 
     ``device`` defaults to CUDA and raises when there is none; the obs
     function of make_obs_fn runs where this image lies."""
@@ -278,6 +334,22 @@ def build_static_bg(program: EngineProgram, init, device=None) -> torch.Tensor:
         torch.zeros((Pm, Np), dtype=torch.bool, device=device), zeros, slot,
     )
     return _scatter_cells(tok, cnt, alive, t(init.obj_r), t(init.obj_c), program.height, program.width)
+
+
+def build_static_mask(program: EngineProgram, init, device=None) -> torch.Tensor:
+    """The AOE mask's source on every pooled map, int32[P, H, W]: each
+    cell's winning territory tag + 1 (0 where none wins), scored from the
+    map's own emitters. Requires static_mask_ok(program). ``device`` as
+    build_static_bg's."""
+    device = resolve_device(device)
+    # The fields territory_scores reads, one row per pooled map.
+    pool = SimpleNamespace(**{f: torch.from_numpy(np.ascontiguousarray(getattr(init, f))).to(device)
+                              for f in ("obj_type", "obj_tags", "obj_alive", "obj_r", "obj_c")})
+    P = init.obj_type.shape[0]
+    H, W = program.height, program.width
+    cell_r = torch.arange(H, dtype=torch.int32, device=device).repeat_interleave(W).expand(P, H * W)
+    cell_c = torch.arange(W, dtype=torch.int32, device=device).repeat(H).expand(P, H * W)
+    return (winning_tags(program, pool, cell_r, cell_c) + 1).view(P, H, W)
 
 
 def pair_rows(img: torch.Tensor, HP2: int):
@@ -341,17 +413,21 @@ def gate_route(v2_ok: bool, static: bool, fused: bool, v3: bool, A: int, G: int,
 
 
 def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=None, obs_tail: str = "auto",
-                draws=None):
+                draws=None, static_mask: torch.Tensor = None):
     """Returns obs_fn(state, obs_buf=None) -> (observations uint8[E, A, T, 3],
     tokens_attempted int32[E, A]).
 
     draws: the draw source (exec.RankDraws) of order_by=random queries in
     value observations; the caller starts its step.
 
-    static_bg: build_static_bg's pooled image where static_background_ok
+    static_bg: build_static_bg's pooled image where static_obs_background_ok
     holds (the obs function then runs on the image's device), or None for
     the mutable background (on ``device``, which defaults to CUDA and raises
     when there is none).
+
+    static_mask: build_static_mask's pooled AOE-mask source where
+    static_mask_ok holds, given with static_bg; else None, and a program
+    with the AOE mask scores every cell's winning tag each step.
 
     The tail kernel is chosen here, from the program's static shapes
     (reference obs.py:525-543, 808-842, 931-1021):
@@ -407,6 +483,8 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
     wrappers take no packing)."""
     if obs_tail not in OBS_TAILS:
         raise ValueError(f"obs_tail must be one of {OBS_TAILS}, not {obs_tail!r}")
+    if static_mask is not None and static_bg is None:
+        raise ValueError("static_mask is the static background's: give it with static_bg")
     A = program.num_agents
     T = program.num_tokens
     feat = program.feature_ids
@@ -454,7 +532,7 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
     OWS = OW * S
     KS = K * S
     KS_pad2 = ((G + KS + 127) // 128) * 128  # v2 candidate lanes incl. globals
-    has_aoe_mask = feat.aoe_mask != 0 and bool(program.territories)
+    has_aoe_mask = _has_aoe_mask(program)
     feat_max = max([int(np.max(cand_feat)) if cand_feat.size else 0] + [int(global_fids[s]) for s in global_slots])
     wide = KS_pad2 > 512
     v2_common = (
@@ -592,18 +670,12 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
         )
 
     def cell_image(state: EnvState):
-        """Raw token words and counts per cell, int32[E, H+1, W, S+1]: the
-        pooled static map plus the agents, or every object."""
-        if static:
-            tok_a, cnt_a = agent_tokens(state)
-            return _scatter_cells(
-                tok_a, cnt_a, state.obj_alive[:, :A], state.obj_r[:, :A], state.obj_c[:, :A], H, W,
-                base=static_bg[state.map_idx.long()],
-            )
+        """Raw token words and counts per cell of every object, int32[E,
+        H+1, W, S+1]."""
         tok_n, cnt_n = object_tokens(state)
         return _scatter_cells(tok_n, cnt_n, state.obj_alive, state.obj_r, state.obj_c, H, W)
 
-    if static:
+    if static and route != "nonfused":
         # ---- prepadded +1-encoded static pool, int32[P, HP_f, WPC_f] ----
         static_imgp = padded(static_bg)
 
@@ -615,7 +687,7 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
             img = static_imgp[state.map_idx.long()]
             add_words(img.view(E, HP_f * WPC_f), HP_f, WPC_f, a["rext"], a["lext"], a["words"])
             return img, a
-    else:
+    elif not static:
 
         def image(state: EnvState):
             """Each env's padded image, int32[E, HP_f, WPC_f], from the cell
@@ -631,22 +703,43 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
     loc_t = torch.from_numpy(loc_k).to(dev)
     if has_aoe_mask:
         check_territories(program)
+    mask_per_step = has_aoe_mask and static_mask is None
+    if mask_per_step:
         cell_r = torch.arange(H, dtype=torch.int32, device=dev).repeat_interleave(W)  # [H*W]
         cell_c = torch.arange(W, dtype=torch.int32, device=dev).repeat(H)
+
+    def body(img):
+        """The map's cells of padded interleaved images img int32[B, HP_n,
+        WPC_n], a view [B, H, W, Ch]."""
+        return img[:, hr : hr + H, wr * Ch : (wr + W) * Ch].unflatten(-1, (W, Ch))
+
+    if static and route == "nonfused":
+        # ---- the interleaved static pool, int32[P, HP_n, WPC_n]: the pooled
+        # maps' words and counts, and with static_mask their winning tags ----
+        static_imgn = torch.zeros((static_bg.shape[0], HP_n, WPC_n), dtype=torch.int32, device=dev)
+        body(static_imgn)[..., : S + 1] = static_bg[:, :H]
+        if static_mask is not None:
+            body(static_imgn)[..., S + 1] = static_mask
 
     def window_inputs(state: EnvState) -> dict:
         """B7's arguments: the padded interleaved image int32[E, HP_n, WPC_n]
         of Ch channels per cell (reference obs.py:1126-1145, 1174-1181) and
-        the agents' window starts."""
+        the agents' window starts. Over a static background each env's pooled
+        image plus the agents' words and counts, else every object's."""
         E = state.obj_type.shape[0]
-        img = torch.zeros((E, HP_n, WPC_n), dtype=torch.int32, device=dev)
-        body = img[:, hr : hr + H, wr * Ch : (wr + W) * Ch].unflatten(-1, (W, Ch))  # a view into img
-        body[..., : S + 1] = cell_image(state)[:, :H]
-        if has_aoe_mask:
+        agent_r, agent_c = state.obj_r[:, :A], state.obj_c[:, :A]
+        if static:
+            img = static_imgn[state.map_idx.long()]
+            tok_a, cnt_a = agent_tokens(state)  # a dead agent's are 0
+            add_words(img.view(E, HP_n * WPC_n), HP_n, WPC_n, agent_r + hr, (agent_c + wr) * Ch,
+                      torch.cat([tok_a, cnt_a[..., None]], dim=-1))
+        else:
+            img = torch.zeros((E, HP_n, WPC_n), dtype=torch.int32, device=dev)
+            body(img)[..., : S + 1] = cell_image(state)[:, :H]
+        if mask_per_step:
             pts = (cell_r.expand(E, H * W), cell_c.expand(E, H * W))
-            body[..., S + 1] = (winning_tags(program, state, *pts) + 1).view(E, H, W)
-        return dict(img=img, row0=state.obj_r[:, :A].contiguous(), lane0=(state.obj_c[:, :A] * Ch).contiguous(),
-                    geom=geom, Ch=Ch)
+            body(img)[..., S + 1] = (winning_tags(program, state, *pts) + 1).view(E, H, W)
+        return dict(img=img, row0=agent_r.contiguous(), lane0=(agent_c * Ch).contiguous(), geom=geom, Ch=Ch)
 
     def candidate_words(state: EnvState, win) -> torch.Tensor:
         """Each agent's candidate words int32[E, A, G + K*(M+S)], -1 where

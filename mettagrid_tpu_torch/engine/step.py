@@ -64,7 +64,14 @@ from mettagrid_tpu_torch.engine.init import EnvInit, stat_dims
 from mettagrid_tpu_torch.engine.ir import CompiledQuery, reaches
 from mettagrid_tpu_torch.engine.mt19937 import mt_init, shuffle_perm
 from mettagrid_tpu_torch.engine.mutfields import POOL_FIELDS, maybe_written_pool_fields
-from mettagrid_tpu_torch.engine.obs import build_static_bg, make_obs_fn, static_background_ok
+from mettagrid_tpu_torch.engine.obs import (
+    build_static_bg,
+    build_static_mask,
+    make_obs_fn,
+    static_background_ok,
+    static_mask_ok,
+    static_obs_background_ok,
+)
 from mettagrid_tpu_torch.engine.program import AUTO_STAT_BASE, EngineProgram
 from mettagrid_tpu_torch.engine.rewards import make_reward_phase
 from mettagrid_tpu_torch.engine.rng_dep import actions_consume_rng, handler_consumes, reference_rng_unsupported
@@ -114,8 +121,9 @@ def _device_init(program: EngineProgram, init: EnvInit, device) -> dict:
 
 
 def _make_obs_fn_for(program: EngineProgram, init: EnvInit, device, obs_tail: str, draws):
-    static_bg = build_static_bg(program, init, device) if static_background_ok(program) else None
-    return make_obs_fn(program, static_bg, device, obs_tail, draws)
+    static_bg = build_static_bg(program, init, device) if static_obs_background_ok(program) else None
+    static_mask = build_static_mask(program, init, device) if static_mask_ok(program) else None
+    return make_obs_fn(program, static_bg, device, obs_tail, draws, static_mask=static_mask)
 
 
 def _bit_words(cell: torch.Tensor, NW: int) -> torch.Tensor:

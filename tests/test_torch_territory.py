@@ -19,11 +19,20 @@ episodes. The port walks them; it is held to the reference run with
 METTAGRID_TPU_NO_MERGE_SKIP=1, and the leak of the reference's own merge is
 shown. Its gridless gate walks territory handlers too, and a territory whose
 prefix names no tag raises when the phase or the observations are built.
+
+The port's observations take a static background where every AOE and
+territory write lands on an agent (obs.static_obs_background_ok, a
+whitelist held here case by case); that route is held to the mutable one,
+byte for byte, across auto-resets that swap maps.
 """
+
+import json
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import mettagrid_tpu.engine as jengine
 from mettagrid_tpu.config.game_config import MettaGridConfig as JMettaGridConfig
@@ -31,15 +40,21 @@ from mettagrid_tpu.engine.actions_fast import gridless_batch_ok as jax_gridless_
 from mettagrid_tpu.engine.mutfields import maybe_written_pool_fields as jax_maybe_written_pool_fields
 from mettagrid_tpu.maps.random_map import RandomMapBuilder as JRandomMapBuilder
 from mettagrid_tpu_torch import engine as tengine
+from mettagrid_tpu_torch.config.event_config import EventConfig
 from mettagrid_tpu_torch.config.handler_config import (
     AOEConfig,
     EntityTarget,
     Handler,
     ResourceDeltaMutation,
+    SpawnObjectMutation,
     SwapMutation,
 )
-from mettagrid_tpu_torch.config.territory_config import TerritoryConfig
+from mettagrid_tpu_torch.config.tag import typeTag
+from mettagrid_tpu_torch.config.territory_config import TerritoryConfig, TerritoryControlConfig
 from mettagrid_tpu_torch.engine import obs as tobs
+from mettagrid_tpu_torch.engine import step as tstep
+from mettagrid_tpu_torch.engine.state import EnvState
+from mettagrid_tpu_torch.profiling import trace
 from mettagrid_tpu_torch.engine.actions_fast import gridless_batch_ok
 from mettagrid_tpu_torch.engine.mutfields import maybe_written_pool_fields
 from mettagrid_tpu_torch.tools import bench_run
@@ -96,8 +111,9 @@ def _observed(seen, program):
 
 def test_territory_cfg_compiles_like_jax():
     """At bench size (24 agents, a pool of three 25x25 maps) the variant
-    compiles to the reference's program and EnvInit; it takes the mutable
-    background and the non-fused observation path."""
+    compiles to the reference's program and EnvInit; it takes the non-fused
+    observation path, over the static background that the port's gate admits
+    and the action phase's gate (the reference's) refuses."""
     rng = np.random.default_rng(0)
     seeds = [int(rng.integers(0, 2**31 - 1)) for _ in range(3)]
     tp, ti = bench_run.build_pool(bench_run.make_cfg("territory"), 3)
@@ -106,7 +122,7 @@ def test_territory_cfg_compiles_like_jax():
     for f in ti.__dataclass_fields__:
         np.testing.assert_array_equal(getattr(ti, f), getattr(ji, f), err_msg=f)
     assert len(tp.aoe_specs) == 2 and len(tp.territories) == 1
-    assert not tobs.static_background_ok(tp)
+    assert not tobs.static_background_ok(tp) and tobs.static_obs_background_ok(tp)
     assert tobs.make_obs_fn(tp, None, "cpu").route == "nonfused"
 
 
@@ -234,3 +250,98 @@ def test_aoe_general_mutations_match_jax():
     seen.update(_lockstep(jcfg, tcfg, 20, check=_observed(seen, program)))
     assert seen["overlap"] >= 2, "no agent stood in two sources of one AOE at once"
     assert seen["hearts"] > 0
+
+
+BENCH_SPEC = json.loads((Path(__file__).resolve().parents[1] / "gridbench" / "configs" / "territory.json").read_text())
+
+
+def _junction_aoes(cfg, *mutations):
+    for name in ("junction_cogs", "junction_clips"):
+        cfg.game.objects[name].aoes["charge"].mutations.extend(mutations)
+
+
+GATE_CASES = {
+    # case: (change, static background admitted, the mask once per pooled map)
+    "territory": (lambda cfg: None, True, True),
+    "aoe_writes_source": (lambda cfg: _junction_aoes(cfg, ResourceDeltaMutation(target=EntityTarget.ACTOR,
+                                                                                deltas={"heart": -1})), False, False),
+    "aoe_general_kind": (lambda cfg: _junction_aoes(cfg, SpawnObjectMutation(object_type="wall")), False, False),
+    "territory_writes_actor": (lambda cfg: cfg.game.territories["zone"].on_enter.mutations.append(
+        ResourceDeltaMutation(target=EntityTarget.ACTOR, deltas={"armor": 1})), False, False),
+    "agent_emits": (lambda cfg: setattr(cfg.game.agent, "territory_controls",
+                                        [TerritoryControlConfig(territory="zone", strength=1024, decay=256)]),
+                    True, False),
+    "event_with_aoe": (lambda cfg: setattr(cfg.game, "events", {"bloom": EventConfig(
+        name="bloom", target_query=typeTag("wall"), timesteps=[2],
+        mutations=[ResourceDeltaMutation(target=EntityTarget.TARGET, deltas={"heart": 1})])}), False, False),
+}
+
+
+@pytest.mark.parametrize("case", list(GATE_CASES))
+def test_static_observation_gate(case):
+    """The observations' static background admits the benchmark's territory
+    game (every AOE and territory write lands on an agent) and refuses an
+    AOE or territory handler that writes its actor (the source or the
+    proxy), a mutation kind outside the whitelist, and an event; where an
+    agent type emits territory the mask stays per step. The action phase's
+    gate is unchanged: the lazy grid stays off for the territory game."""
+    from gridbench.port import config_module
+
+    change, admitted, mask_static = GATE_CASES[case]
+    cfg = config_module("territory").port_config(BENCH_SPEC, 100)
+    change(cfg)
+    program = tengine.compile_program(cfg)
+    assert tobs.static_obs_background_ok(program) == admitted
+    assert tobs.static_mask_ok(program) == mask_static
+    assert not tobs.static_background_ok(program)
+    if case == "territory":
+        one_map = cfg.game.map_builder.model_copy(update={"seed": 0}).create().build_for_num_agents(program.num_agents)
+        init = tengine.build_env_init(program, [one_map])
+        assert tengine.make_step(program, init, device="cpu").lazy_grid is False
+
+
+def test_static_route_matches_mutable_route(monkeypatch):
+    """The territory variant (8 agents, a pool of three maps, max_steps=4)
+    stepped 14 times through the static route (the pooled image and mask)
+    and through the mutable one (every object and every cell's winning tag
+    each step), in lockstep from one reset, every auto-reset swapping the
+    env's map: equal observation bytes, attempted tokens, interleaved images
+    (the mask channel included) and states after every step. Stage 1 runs
+    over E·A slots on the static route and E·N on the mutable one, and the
+    territory's emitters are read once a step, not twice."""
+    _, tcfg = _cfgs(4, agents=8)
+    tp, ti = _build(tengine, tcfg, (3, 4, 5))
+    E, A, N, P = 4, tp.num_agents, ti.obj_type.shape[1], 3
+    state, _ = tengine.make_reset(tp, ti, E, device="cpu")(0)
+    static_step = tengine.make_step(tp, ti, external_perm=True, device="cpu")
+    monkeypatch.setattr(tstep, "_make_obs_fn_for", lambda program, init, device, obs_tail, draws:
+                        tobs.make_obs_fn(program, None, device, obs_tail, draws))
+    mutable_step = tengine.make_step(tp, ti, external_perm=True, device="cpu")
+    assert static_step.obs_fn.route == mutable_step.obs_fn.route == "nonfused"
+    rng = np.random.default_rng(0)
+    zeros = torch.zeros((E, A), dtype=torch.int32)
+    sstate, mstate, swaps, masked = state, state, 0, 0
+    for _ in range(14):
+        acts = torch.from_numpy(rng.integers(0, 5, (E, A)).astype(np.int32))
+        perm = torch.from_numpy(np.stack([rng.permutation(A) for _ in range(E)]).astype(np.int32))
+        maps = (sstate.map_idx + 1) % P
+        before = sstate.map_idx
+        sstate, sout = static_step(sstate, acts, zeros, perm, reset_maps=maps)
+        mstate, mout = mutable_step(mstate, acts, zeros, perm, reset_maps=maps)
+        swaps += int((sstate.map_idx != before).sum())
+        assert torch.equal(sout.observations, mout.observations)
+        assert torch.equal(sout.tokens_attempted, mout.tokens_attempted)
+        simg, mimg = (s.obs_fn.window_inputs(st) for s, st in ((static_step, sstate), (mutable_step, mstate)))
+        assert torch.equal(simg["img"], mimg["img"])
+        masked += int((simg["img"][..., simg["Ch"] - 1 :: simg["Ch"]] > 0).sum())
+        for name, a, b in zip(EnvState._fields, sstate, mstate):
+            assert torch.equal(a, b), name
+    assert swaps >= 2 * E and masked > 0
+
+    counts = {}
+    for name, step in (("static", static_step), ("mutable", mutable_step)):
+        trace.reset()
+        step(sstate, acts, zeros, perm, reset_maps=maps)
+        counts[name] = (trace.counted("obs.stage1_slots"), trace.counted("host_syncs.territory.emitters"))
+    trace.reset()
+    assert counts == {"static": (E * A, 1), "mutable": (E * N, 2)}

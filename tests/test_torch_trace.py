@@ -6,8 +6,8 @@ tests hold the counts to the wave loop's own rule, the log to the
 profiler's clock, the totals and the log to the profiler switch, the
 set-up spans to one build, and the step-path modules of engine/ to reading
 device values only through ``trace.host_read``. A small territory program
-(the bench variant at 4 envs) holds the counters ``aoe.pairs`` and
-``territory.points`` to the shapes they count and to adding no host read. The arithmetic of
+(the bench variant at 4 envs) holds the counters ``aoe.pairs``,
+``territory.points`` and ``obs.stage1_slots`` to the shapes they count and to adding no host read. The arithmetic of
 profiling/phase_timing.py that tools/profile_step.py reports (``per_step``,
 ``innermost_segments``, ``idle_by_span``) is checked on hand-made logs.
 """
@@ -304,13 +304,15 @@ def test_territory_counters_count_the_stated_shapes(territory_built):
     p, state = b["program"], b["state"]
     d = b["one"]()
     E, N = state.obj_type.shape
-    H, W = state.grid.shape[1:]
     junctions = [i for i, name in enumerate(p.type_names) if name.startswith("junction_")]
     emitters = int((torch.isin(state.obj_type, torch.tensor(junctions)) & state.obj_alive).sum(1).max())
     assert len(p.aoe_specs) == 2 and emitters == 4
     assert d["aoe.pairs"] == len(p.aoe_specs) * E * N * A
-    # The agents' cells in the territory phase, every cell for the AOE mask, each times the emitters.
-    assert d["territory.points"] == E * (A + H * W) * emitters
+    # The agents' cells in the territory phase, each times the emitters: the AOE mask's cells are scored
+    # once per pool map (no agent emits territory), outside the step.
+    assert d["territory.points"] == E * A * emitters
+    # Over the static background stage 1 encodes the agents alone.
+    assert d["obs.stage1_slots"] == E * A
 
 
 def test_territory_counters_are_absent_on_the_arena(built):
@@ -333,7 +335,7 @@ def test_territory_counters_add_no_host_read(territory_built, monkeypatch):
     def phase_reads(d):  # the action phase's wave reads follow the drawn moves
         return {k: v for k, v in d.items() if k.startswith("host_syncs.") and not k.startswith("host_syncs.actions.")}
 
-    # The phase's and the mask's emitter reads, with the counters or without, and nothing more.
-    assert phase_reads(counted) == phase_reads(silent) == {"host_syncs.territory.emitters": 2}
+    # The phase's emitter read, with the counters or without, and nothing more.
+    assert phase_reads(counted) == phase_reads(silent) == {"host_syncs.territory.emitters": 1}
     for d in (counted, silent):
         assert d["host_syncs"] == sum(v for k, v in d.items() if k.startswith("host_syncs."))
