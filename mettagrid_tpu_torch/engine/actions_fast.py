@@ -83,7 +83,7 @@ def _value_local(v) -> bool:
         return all(_value_local(c) for c in v.children)
     # Whitelist the known entity-local leaves; any other kind (the query
     # kinds today, anything added later) defaults to NOT wave-local — the
-    # repo convention for classification gates (cf. _mutation_bg_inert).
+    # repo convention for classification gates (cf. mutfields._KINDS).
     return v.kind in ("const", "inventory", "stat")
 
 
@@ -403,7 +403,7 @@ def make_action_phase_fast(program: EngineProgram, pure_move: bool = False, lazy
 
     pure_move (requires pure_move_ok): the move waves are [E, A] cell-id
     arithmetic, with no per-wave grid gathers or scatters. lazy_grid
-    (requires pure_move and obs.static_background_ok) then skips the writes
+    (requires pure_move; step.step_gates decides it) then skips the writes
     of the grid's agent layer: nothing reads that layer (collisions resolve
     from the position vector, static occupancy only tests ``slot >= A``),
     so the grid keeps its reset value, as in the reference engine.

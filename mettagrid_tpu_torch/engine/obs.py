@@ -5,7 +5,7 @@ from the program's static shapes and the caller's ``obs_tail``):
 
 * static background (the arena and combat presets, and AOE and territories
   that write only agents): every non-agent object is provably inert
-  (static_obs_background_ok), so its token image is built once per
+  (mutfields.static_background), so its token image is built once per
   pooled map, and each step encodes only the agents' tokens. Kernel B1
   (engine/kernels/obs_tail_static_v2.py) runs the v2 tail over the pooled
   image, kernel B4 (obs_tail_static_v1.py) the v1 tail;
@@ -49,6 +49,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from mettagrid_tpu_torch.engine import mutfields
 from mettagrid_tpu_torch.engine.kernels import tail_plan
 from mettagrid_tpu_torch.engine.kernels.compact_rows import compact_rows
 from mettagrid_tpu_torch.engine.kernels.obs_tail_dyn_v2 import obs_tail_dyn_v2
@@ -71,151 +72,6 @@ _V2_RPE = 16
 # Global slots whose token is emitted on every step (the fused tail's gate).
 _ALWAYS_VALID_GLOBALS = ("epct", "last_action", "last_action_move", "last_reward")
 OBS_TAILS = ("auto", "v3")
-
-
-def _mutation_bg_inert(program: EngineProgram, m) -> bool:
-    """True when this mutation (and its on_success chain) provably never
-    alters a NON-agent object's tokens, position, or aliveness, given that
-    it can only run from an action-handler context (ctx.actor = the acting
-    agent). WHITELIST: unknown/new mutation kinds return False — adding a
-    kind that can touch non-agent state must keep this False or the static
-    background silently goes stale (CLAUDE.md gate invariant;
-    tests/test_gate_soundness.py pins the matrix)."""
-
-    k = m.kind
-    if k == "relocate":
-        ok = True  # moves the ACTOR (an agent); grid occupancy is not obs state
-    elif k == "swap":
-        ok = True  # no-ops unless BOTH entities are agents (handlers.py:119-128)
-    elif k == "stats":
-        ok = True  # stats are agent/game arrays, never object tokens
-    elif k in ("change_vibe", "add_tag", "remove_tag", "remove_tags_with_prefix",
-               "resource_delta", "clear_inventory"):
-        ok = bool(m.target_is_actor)  # actor-agent writes only
-    elif k == "resource_transfer":
-        ok = bool(m.from_is_actor and m.to_is_actor)
-    elif k == "set_game_value":
-        # stat writes never touch object tokens; an inventory write must hit
-        # the actor.
-        ok = m.write_rid < 0 or bool(m.target_is_actor)
-    elif k == "use_target":
-        # The always-appended default UseTarget handler
-        # (action_handler_factory.cpp:33-45). background_inert() already
-        # requires no usable types, so the mutation can only no-op (the
-        # target type has no on_use chain).
-        ok = not np.asarray(program.type_usable).any()
-    elif k == "direct_attack":
-        # Writes only the TARGET's health (decrement-only, clamped at 0 —
-        # handlers.py direct_attack). A non-agent target's health therefore
-        # never changes IF no non-agent starts with any: within a
-        # background-inert program nothing else can grant inventory to a
-        # non-agent, so health stays 0 -> zero-valued writes -> tokens
-        # unchanged. (Maps bind cells to types; initial inventory is
-        # per-type — engine/init.py.)
-        non_agent = ~np.asarray(program.type_is_agent)
-        ok = (
-            m.health_rid >= 0
-            and not np.asarray(program.type_initial_inv)[non_agent, m.health_rid].any()
-        )
-    else:
-        # attack (legacy loot/defense transfers), use_target, query_inventory,
-        # push_object, spawn_object, raycast_spawn,
-        # recompute_materialized_query, and anything new: not provably inert.
-        ok = False
-    return ok and all(_mutation_bg_inert(program, s) for s in m.on_success)
-
-
-def _mutation_writes_target_agent(m) -> bool:
-    """True when this mutation (and its on_success chain) writes nothing but
-    its TARGET and stats, in an AOE or territory context: there the target is
-    always an agent (aoe.py, territory.py) and the actor is the AOE's source
-    or the territory's proxy, so _mutation_bg_inert's "the actor is the
-    acting agent" does not hold. WHITELIST: any write of the actor, and any
-    kind not listed, returns False."""
-    k = m.kind
-    if k == "stats":
-        ok = True  # stats are agent/game arrays, never object tokens
-    elif k in ("resource_delta", "change_vibe", "add_tag", "remove_tag", "remove_tags_with_prefix",
-               "clear_inventory"):
-        ok = not m.target_is_actor
-    elif k == "set_game_value":
-        ok = m.write_rid < 0 or not m.target_is_actor
-    else:
-        ok = False
-    return ok and all(_mutation_writes_target_agent(s) for s in m.on_success)
-
-
-def background_inert(program: EngineProgram) -> bool:
-    """True when every reachable ACTION mutation provably writes only agent
-    state (filters/queries are read-only). With events and ticks excluded by
-    static_obs_background_ok, AOE and territory mutations checked there on
-    their own, and usable types absent (on_use chains unreachable), move
-    handlers are the only other mutation sites."""
-
-    from mettagrid_tpu_torch.engine.ir import CompiledHandler
-
-    if np.asarray(program.type_usable).any():
-        return False  # UseTarget could fire on_use chains at objects
-
-    def handler_ok(h) -> bool:
-        if isinstance(h, CompiledHandler):
-            return all(_mutation_bg_inert(program, m) for m in h.mutations)
-        return all(handler_ok(c) for c in h.handlers)
-
-    return all(handler_ok(mh.handler) for mh in program.move_handlers)
-
-
-def static_obs_background_ok(program: EngineProgram) -> bool:
-    """True when every non-agent object is provably inert for the whole
-    episode — tokens, position, and aliveness can never change — so its cell
-    image can be precomputed once per pooled map and gathered per env (the
-    observations' gate).
-
-    Sufficient conditions: every reachable action mutation writes only agent
-    state — pure relocation (pure_move_ok) or the broader background_inert
-    whitelist (e.g. vibe-gated DirectAttack arenas qualify); every AOE
-    spec's mutations and every territory's enter, exit and presence
-    handlers write only their target, an agent (AOE presence deltas land on
-    agents too); and there are no events / on_tick handlers /
-    materialized-query recomputes. change_vibe only writes agent vibes.
-    The JAX engine's static_background_ok refuses any AOE or territory; the
-    port widens it here.
-    """
-    from mettagrid_tpu_torch.engine.actions_fast import pure_move_ok
-
-    territory_handlers = [h for t in program.territories for h in (t.on_enter, t.on_exit, t.presence) if h]
-    return (
-        (pure_move_ok(program) or background_inert(program))
-        and not program.events
-        and program.game_on_tick is None
-        and all(h is None for h in program.on_tick_handlers)
-        and not program.materialized
-        and all(_mutation_writes_target_agent(m) for s in program.aoe_specs for m in s.mutations)
-        and all(_mutation_writes_target_agent(m) for h in territory_handlers for m in h.mutations)
-    )
-
-
-def static_background_ok(program: EngineProgram) -> bool:
-    """static_obs_background_ok without AOE or territories: the gate of the
-    action phase's lazy grid (engine/step.py), which keeps the reference's."""
-    return static_obs_background_ok(program) and not program.aoe_specs and not program.territories
-
-
-def _has_aoe_mask(program: EngineProgram) -> bool:
-    return program.feature_ids.aoe_mask != 0 and bool(program.territories)
-
-
-def static_mask_ok(program: EngineProgram) -> bool:
-    """True when each cell's AOE-mask source, its winning territory tag, is
-    a function of the pooled map alone: the observations carry the mask,
-    the background is static (static_obs_background_ok) and no agent type
-    has territory strength, so every emitter is an inert object."""
-    is_agent = np.asarray(program.type_is_agent, dtype=bool)
-    return (
-        _has_aoe_mask(program)
-        and static_obs_background_ok(program)
-        and not any((np.asarray(t.type_strength)[is_agent] > 0).any() for t in program.territories)
-    )
 
 
 def _candidate_features(program: EngineProgram):
@@ -314,7 +170,7 @@ def _scatter_cells(tok, cnt, alive, obj_r, obj_c, H: int, W: int) -> torch.Tenso
 def build_static_bg(program: EngineProgram, init, device=None) -> torch.Tensor:
     """The static (non-agent) cell image of every pooled map:
     int32[P, H+1, W, S+1] (S token words, then the token count; dead objects
-    land on the padding row H). Requires static_obs_background_ok(program).
+    land on the padding row H). Requires mutfields.static_background.
 
     ``device`` defaults to CUDA and raises when there is none; the obs
     function of make_obs_fn runs where this image lies."""
@@ -339,7 +195,7 @@ def build_static_bg(program: EngineProgram, init, device=None) -> torch.Tensor:
 def build_static_mask(program: EngineProgram, init, device=None) -> torch.Tensor:
     """The AOE mask's source on every pooled map, int32[P, H, W]: each
     cell's winning territory tag + 1 (0 where none wins), scored from the
-    map's own emitters. Requires static_mask_ok(program). ``device`` as
+    map's own emitters. Requires mutfields.static_mask. ``device`` as
     build_static_bg's."""
     device = resolve_device(device)
     # The fields territory_scores reads, one row per pooled map.
@@ -420,13 +276,13 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
     draws: the draw source (exec.RankDraws) of order_by=random queries in
     value observations; the caller starts its step.
 
-    static_bg: build_static_bg's pooled image where static_obs_background_ok
+    static_bg: build_static_bg's pooled image where mutfields.static_background
     holds (the obs function then runs on the image's device), or None for
     the mutable background (on ``device``, which defaults to CUDA and raises
     when there is none).
 
     static_mask: build_static_mask's pooled AOE-mask source where
-    static_mask_ok holds, given with static_bg; else None, and a program
+    mutfields.static_mask holds, given with static_bg; else None, and a program
     with the AOE mask scores every cell's winning tag each step.
 
     The tail kernel is chosen here, from the program's static shapes
@@ -532,7 +388,7 @@ def make_obs_fn(program: EngineProgram, static_bg: torch.Tensor = None, device=N
     OWS = OW * S
     KS = K * S
     KS_pad2 = ((G + KS + 127) // 128) * 128  # v2 candidate lanes incl. globals
-    has_aoe_mask = _has_aoe_mask(program)
+    has_aoe_mask = mutfields.has_aoe_mask(program)
     feat_max = max([int(np.max(cand_feat)) if cand_feat.size else 0] + [int(global_fids[s]) for s in global_slots])
     wide = KS_pad2 > 512
     v2_common = (

@@ -43,6 +43,7 @@ across calls clones it. make_step's docstring says which calls replay.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -63,15 +64,9 @@ from mettagrid_tpu_torch.engine.handlers import recompute_materialized, try_appl
 from mettagrid_tpu_torch.engine.init import EnvInit, stat_dims
 from mettagrid_tpu_torch.engine.ir import CompiledQuery, reaches
 from mettagrid_tpu_torch.engine.mt19937 import mt_init, shuffle_perm
+from mettagrid_tpu_torch.engine import mutfields
 from mettagrid_tpu_torch.engine.mutfields import POOL_FIELDS, maybe_written_pool_fields
-from mettagrid_tpu_torch.engine.obs import (
-    build_static_bg,
-    build_static_mask,
-    make_obs_fn,
-    static_background_ok,
-    static_mask_ok,
-    static_obs_background_ok,
-)
+from mettagrid_tpu_torch.engine.obs import build_static_bg, build_static_mask, make_obs_fn
 from mettagrid_tpu_torch.engine.program import AUTO_STAT_BASE, EngineProgram
 from mettagrid_tpu_torch.engine.rewards import make_reward_phase
 from mettagrid_tpu_torch.engine.rng_dep import actions_consume_rng, handler_consumes, reference_rng_unsupported
@@ -120,10 +115,47 @@ def _device_init(program: EngineProgram, init: EnvInit, device) -> dict:
     return pool
 
 
-def _make_obs_fn_for(program: EngineProgram, init: EnvInit, device, obs_tail: str, draws):
-    static_bg = build_static_bg(program, init, device) if static_obs_background_ok(program) else None
-    static_mask = build_static_mask(program, init, device) if static_mask_ok(program) else None
-    return make_obs_fn(program, static_bg, device, obs_tail, draws, static_mask=static_mask)
+class StepGates(NamedTuple):
+    """make_step's set-up decisions for one program: the action phase from
+    actions_fast's gates, the observations' static background and mask from
+    the write analysis (engine/mutfields.py), and the lazy grid from both."""
+
+    waves: bool  # the wave phase (actions_fast), else the sequential phase
+    pure_move: bool  # the wave phase's pure-move waves
+    lazy_grid: bool  # the pure-move waves skip the grid's agent layer
+    lazy_agent_layer: bool  # the action phase leaves the agent layer stale
+    static_bg: bool  # build_static_bg's pooled image serves the observations
+    static_mask: bool  # build_static_mask's pooled AOE-mask source serves them
+
+
+def step_gates(program: EngineProgram, action_mode: str = "auto", reference_rng: bool = False) -> StepGates:
+    """make_step's gates for ``program`` under ``action_mode`` and
+    ``reference_rng``. The action phase is the reference's choice
+    (step.py:595-629)."""
+    auto = action_mode == "auto"
+    acts_consume = reference_rng and actions_consume_rng(program)
+    waves = (action_mode in ("fast", "pure") or (auto and fast_mode_ok(program))) and not acts_consume
+    pure = waves and (action_mode == "pure" or (auto and pure_move_ok(program)))
+    static_bg = mutfields.static_background(program, pure_move_ok(program))
+    # The lazy grid keeps the reference's gate: a static background with no
+    # AOE or territory. A program that reads the grid (a raycast) keeps its
+    # agent layer current; the reference's lazy grid ignores queries
+    # (ROADMAP Queue 3).
+    lazy_grid = pure and static_bg and not program.aoe_specs and not program.territories and not reads_grid(program)
+    # Pure-move waves with the lazy grid, or handler-chain waves whose
+    # batches run gridless.
+    lazy_agent_layer = waves and (lazy_grid if pure else batch_gridless(program))
+    return StepGates(waves, pure, lazy_grid, lazy_agent_layer, static_bg, mutfields.static_mask(program, static_bg))
+
+
+def step_obs_fn(program: EngineProgram, init: EnvInit, device, obs_tail: str = "auto", draws=None, gates=None):
+    """make_step's and make_reset's observation function: over the pooled
+    static background and AOE-mask source where ``gates`` (make_step's, by
+    default step_gates(program)) admit them."""
+    gates = gates or step_gates(program)
+    static_bg = build_static_bg(program, init, device) if gates.static_bg else None
+    mask = build_static_mask(program, init, device) if gates.static_mask else None
+    return make_obs_fn(program, static_bg, device, obs_tail, draws, static_mask=mask)
 
 
 def _bit_words(cell: torch.Tensor, NW: int) -> torch.Tensor:
@@ -265,7 +297,7 @@ def make_reset(program: EngineProgram, init: EnvInit, num_envs: int, reference_r
     P = init.pool_size
     generator = torch.Generator(device=dev)
     draws = RankDraws(generator)
-    obs_fn = _make_obs_fn_for(program, init, dev, obs_tail, draws)
+    obs_fn = step_obs_fn(program, init, dev, obs_tail, draws)
 
     def reset(seed: int, query_ranks=None):
         generator.manual_seed(int(seed))
@@ -489,13 +521,8 @@ def _pool_token_stats(program: EngineProgram, pool: dict, obs_fn, P: int, draws:
     ).to(torch.float32)
 
 
-def _wave_kinds(program: EngineProgram, action_mode: str, reference_rng: bool) -> tuple:
-    """(wave phase, pure-move waves): the action phase as the reference
-    chooses it (step.py:595-629)."""
-    auto = action_mode == "auto"
-    acts_consume = reference_rng and actions_consume_rng(program)
-    use_fast = (action_mode in ("fast", "pure") or (auto and fast_mode_ok(program))) and not acts_consume
-    return use_fast, use_fast and (action_mode == "pure" or (auto and pure_move_ok(program)))
+# The phases whose loops read the host.
+_HOST_READ_PHASES = (mutfields.EVENT, mutfields.AGENT_TICK, mutfields.AOE, mutfields.TERRITORY, mutfields.GAME_TICK)
 
 
 def graphs_ok(program: EngineProgram, device, action_mode: str = "auto", reference_rng: bool = False) -> bool:
@@ -508,11 +535,9 @@ def graphs_ok(program: EngineProgram, device, action_mode: str = "auto", referen
     and the reference-RNG step is off (its twin's loops read the host)."""
     if torch.device(device).type != "cuda" or reference_rng:
         return False
-    if not _wave_kinds(program, action_mode, reference_rng)[1]:
+    if not step_gates(program, action_mode, reference_rng).pure_move:
         return False
-    if program.events or program.aoe_specs or program.territories or program.game_on_tick is not None:
-        return False
-    if any(h is not None for h in program.on_tick_handlers):
+    if any(site.context in _HOST_READ_PHASES for site in mutfields.mutation_sites(program)):
         return False
     return not reaches(program, lambda node: isinstance(node, CompiledQuery) and node.order_random)
 
@@ -674,15 +699,11 @@ def make_step(
     # order_by=random outside the twin's reach draws from the generator.
     draws = RankDraws(generator)
 
-    acts_consume = reference_rng and actions_consume_rng(program)
-    use_fast, use_pure = _wave_kinds(program, action_mode, reference_rng)
-    # A program that reads the grid (a raycast) keeps its agent layer
-    # current; the reference's lazy grid ignores queries (ROADMAP Queue 3).
-    lazy_grid = use_pure and static_background_ok(program) and not reads_grid(program)
-    if use_fast:
-        action_phase = make_action_phase_fast(program, pure_move=use_pure, lazy_grid=lazy_grid)
+    gates = step_gates(program, action_mode, reference_rng)
+    if gates.waves:
+        action_phase = make_action_phase_fast(program, pure_move=gates.pure_move, lazy_grid=gates.lazy_grid)
     else:
-        sequential_phase = make_action_phase(program, reference_rng=acts_consume)
+        sequential_phase = make_action_phase(program, reference_rng=reference_rng and actions_consume_rng(program))
 
         def action_phase(state, actions, vibe_actions, perm):
             return sequential_phase(state, actions, vibe_actions, perm, draws)
@@ -691,14 +712,11 @@ def make_step(
     game_tick_phase = make_game_tick_phase(program, reference_rng)
     aoe_phase = make_aoe_phase(program, init)
     territory_phase = make_territory_phase(program)
-    obs_fn = _make_obs_fn_for(program, init, dev, obs_tail, draws)
+    obs_fn = step_obs_fn(program, init, dev, obs_tail, draws, gates)
     reward_phase = make_reward_phase(program)
     coverage_phase = make_coverage_phase(program)
     visited_phase = make_visited_phase(program)
 
-    # The action phase leaves the grid's agent layer stale: pure-move waves
-    # with the lazy grid, or handler-chain waves whose batches run gridless.
-    lazy_agent_layer = use_fast and (lazy_grid if use_pure else batch_gridless(program))
     pool_token_stats = _pool_token_stats(program, pool, obs_fn, P, draws) if auto_reset else None
     pool_fields = _POOL_RESET_FIELDS + (() if program.stats_compact else ("agent_stats", "auto_stats"))
     reset_template = None
@@ -710,7 +728,7 @@ def make_step(
         # reference tests gridless_batch_ok here, which also holds for
         # pure-move programs that write the grid and for batches that read
         # and write it; ROADMAP Queue 3.) The sequential phase writes it.
-        mutable = maybe_written_pool_fields(program, lazy_grid=lazy_agent_layer)
+        mutable = maybe_written_pool_fields(program, lazy_grid=gates.lazy_agent_layer)
         pool_fields = tuple(f for f in pool_fields if f in mutable or f not in POOL_FIELDS)
         reset_template = _fresh_state_from_pool(
             program, pool, torch.zeros((1,), dtype=torch.int32, device=dev),
@@ -863,6 +881,6 @@ def make_step(
         step = _graph_step(run, external_perm, auto_reset and P > 1)
     step.obs_fn = obs_fn
     step.action_phase = action_phase
-    step.action_phase_kind = "waves" if use_fast else "sequential"
-    step.lazy_grid = lazy_agent_layer
+    step.action_phase_kind = "waves" if gates.waves else "sequential"
+    step.lazy_grid = gates.lazy_agent_layer
     return step

@@ -457,8 +457,8 @@ def check_gates(program, pure_attack: bool = False, random_query: bool = False,
                 event_filter_rng: bool = False, **_family) -> None:
     """Assert the route each family is there to exercise."""
     from mettagrid_tpu_torch.engine.actions_fast import pure_move_ok
-    from mettagrid_tpu_torch.engine.obs import static_background_ok
     from mettagrid_tpu_torch.engine.rng_dep import actions_consume_rng, reference_rng_unsupported
+    from mettagrid_tpu_torch.engine.step import step_gates
 
     if event_filter_rng:
         # A consuming EVENT-handler filter must compile (the sequential
@@ -472,7 +472,7 @@ def check_gates(program, pure_attack: bool = False, random_query: bool = False,
     if pure_attack:
         # Live DirectAttack combat keeps the static-background obs path
         # while the wave (non-pure) action loop runs.
-        assert static_background_ok(program) and not pure_move_ok(program), (
+        assert step_gates(program).static_bg and not pure_move_ok(program), (
             "pure_attack parity config must take the static-bg + wave path"
         )
 

@@ -137,7 +137,7 @@ TITHE_SHRINES = 8
 def make_general_cfg(num_agents: int):
     """The combat arena (change_vibe enabled, a vibe-gated DirectAttack move
     handler) plus a periodic event that grants hearts to walls, so neither
-    pure_move_ok nor static_background_ok holds (bench.py:29-72)."""
+    pure_move_ok nor the static background holds (bench.py:29-72)."""
     from mettagrid_tpu_torch.config.action_config import ChangeVibeActionConfig
     from mettagrid_tpu_torch.config.event_config import EventConfig, periodic
     from mettagrid_tpu_torch.config.handler_config import (
@@ -172,7 +172,7 @@ def make_general_cfg(num_agents: int):
 
 def make_combat_cfg(num_agents: int):
     """The combat arena without the event, agents armed: DirectAttack keeps
-    the static background (obs.background_inert) while the moves run the
+    the static background (mutfields.ACTOR_ONLY) while the moves run the
     handler-chain waves (bench.py:75-83)."""
     cfg = make_general_cfg(num_agents)
     cfg.game.events = {}

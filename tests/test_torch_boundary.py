@@ -54,20 +54,36 @@ def test_import_pulls_in_no_jax():
     assert res.stdout.startswith("ok")
 
 
-@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+def _phase_module(name: str) -> bool:
+    module = name.removeprefix("mettagrid_tpu_torch.engine.")
+    return module != name and (module in ("aoe", "territory", "obs") or module.startswith(("actions", "step")))
+
+
+# target: {file scanned: the imported names it must not hold}. The engine's
+# arrows point one way: the observations import nothing of the action phase,
+# and the write analysis (engine/mutfields.py) no phase module.
+SCANS = {
+    "package": lambda: {path: _forbidden for path in sorted(PACKAGE.rglob("*.py"))},
+    "chip_smoke": lambda: {ROOT / "chip_smoke.py": _forbidden},
+    "engine_arrows": lambda: {PACKAGE / "engine" / "obs.py": lambda n: n == "mettagrid_tpu_torch.engine.actions_fast",
+                              PACKAGE / "engine" / "mutfields.py": _phase_module},
+}
+
+
+@pytest.mark.parametrize("target", list(SCANS))
 def test_no_jax_import_in_source(target):
-    files = sorted(PACKAGE.rglob("*.py")) if target == "package" else [ROOT / "chip_smoke.py"]
+    files = SCANS[target]()
     assert files
-    for path in files:
+    for path, forbidden in files.items():
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
+                names = [node.module or ""] + [f"{node.module}.{a.name}" for a in node.names]
             else:
                 continue
-            bad = [n for n in names if _forbidden(n)]
+            bad = [n for n in names if forbidden(n)]
             assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} imports {bad}"
 
 
@@ -363,10 +379,11 @@ def _small_general():
 
 def test_general_entry_points_need_a_device_or_cpu(monkeypatch):
     from mettagrid_tpu_torch.engine import make_reset, make_step, obs
+    from mettagrid_tpu_torch.engine.step import step_gates
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     program, init = _small_general()
-    assert not obs.static_background_ok(program)
+    assert not step_gates(program).static_bg
     for make in (lambda: make_step(program, init), lambda: make_reset(program, init, 8),
                  lambda: obs.make_obs_fn(program, None)):
         with pytest.raises(RuntimeError, match="CUDA"):

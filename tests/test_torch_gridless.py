@@ -36,7 +36,7 @@ from mettagrid_tpu_torch.config import handler_config as thc
 from mettagrid_tpu_torch.config.tag import typeTag
 from mettagrid_tpu_torch.engine.actions_fast import batch_gridless, gridless_batch_ok, pure_move_ok, shared_read_ok
 from mettagrid_tpu_torch.engine.exec import true_grid
-from mettagrid_tpu_torch.engine.obs import static_background_ok
+from mettagrid_tpu_torch.engine.step import step_gates
 from mettagrid_tpu_torch.maps.random_map import RandomMapBuilder
 from tests.test_torch_general import A, E, _build, _lockstep
 
@@ -81,7 +81,7 @@ def test_gridless_batch_ok_holds_where_the_grid_is_written(kind):
     if kind == "poke":
         assert not shared_read_ok(tp) and not batch_gridless(tp)
     else:
-        assert pure_move_ok(tp) and not static_background_ok(tp)
+        assert pure_move_ok(tp) and not step_gates(tp).static_bg
 
 
 @pytest.mark.parametrize("kind", ["poke", "bloom"])

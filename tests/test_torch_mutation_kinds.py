@@ -264,7 +264,7 @@ def _lockstep(cfg, jax_mode="sequential", port_mode="auto", n_steps=STEPS, seed=
     assert fast_mode_ok(tp) == jfast.fast_mode_ok(jp)
     jstep = jengine.make_step(jp, ji, auto_reset=False, donate=False, action_mode=jax_mode, external_perm=True)
     tstep = tengine.make_step(tp, ti, auto_reset=False, device="cpu", action_mode=port_mode, external_perm=True)
-    lazy = tstep.action_phase_kind == "waves" and batch_gridless(tp)
+    lazy = tstep.lazy_grid
     tstate, tout = tengine.make_reset(tp, ti, E, device="cpu")(0)
     jstate, jbuf = jax_state_of(tstate), jnp.asarray(tout.observations.numpy())
     rng = np.random.default_rng(seed)

@@ -37,6 +37,7 @@ from mettagrid_tpu_torch.engine import obs as tobs
 from mettagrid_tpu_torch.engine.interop import state_from_numpy
 from mettagrid_tpu_torch.engine.kernels.compact_rows import compact_rows, compact_rows_ref
 from mettagrid_tpu_torch.engine.kernels.window_slices import window_slices, window_slices_ref
+from mettagrid_tpu_torch.engine.step import step_obs_fn
 from mettagrid_tpu_torch.maps.random_map import RandomMapBuilder
 from mettagrid_tpu_torch.tools import bench_run
 from tests.test_torch_general import _build
@@ -69,9 +70,8 @@ def _case(case):
         tcfg = _port_cfg(case)
         jp, ji = _build(jengine, jax_twin(tcfg), (3, 4))
         tp, ti = _build(tengine, tcfg, (3, 4))
-        static = tobs.static_background_ok(tp)
-        jfn = jobs.make_obs_fn(jp, jobs.build_static_bg(jp, ji) if static else None)
-        tfn = tobs.make_obs_fn(tp, tobs.build_static_bg(tp, ti, "cpu") if static else None, "cpu")
+        jfn = jobs.make_obs_fn(jp, jobs.build_static_bg(jp, ji) if jobs.static_background_ok(jp) else None)
+        tfn = step_obs_fn(tp, ti, "cpu")
         state, _ = jengine.make_reset(jp, ji, E)(0)
         step = jengine.make_step(jp, ji, auto_reset=True, donate=False)
         rng = np.random.default_rng(5)

@@ -42,6 +42,7 @@ from mettagrid_tpu_torch.engine.kernels.obs_tail_dyn_v2 import obs_tail_dyn_v2
 from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v1 import obs_tail_static_v1
 from mettagrid_tpu_torch.engine.kernels.tail_plan import MAX_SMEM
 from mettagrid_tpu_torch.engine.kernels.obs_tail_v1 import obs_tail_v1
+from mettagrid_tpu_torch.engine.step import step_obs_fn
 from mettagrid_tpu_torch.maps.random_map import RandomMapBuilder
 from tests.test_torch_general import A, E, _build, _cfgs, _lockstep
 from tests.test_torch_tail_plan import _one_image_and_tables
@@ -79,7 +80,7 @@ def _variant_cfgs(variant):
 def test_lockstep_matches_jax(variant, kernel):
     jcfg, tcfg = _variant_cfgs(variant)
     tp, ti = _build(tengine, tcfg, (3, 4, 5))
-    fn = tobs.make_obs_fn(tp, tobs.build_static_bg(tp, ti, "cpu") if tobs.static_background_ok(tp) else None, "cpu")
+    fn = step_obs_fn(tp, ti, "cpu")
     assert fn.tail is kernel
     g = tp.global_obs
     fixed = sum([g.episode_completion_pct, g.last_action, g.last_action_move, g.last_reward])

@@ -21,6 +21,7 @@ from mettagrid_tpu.maps.random_map import RandomMapBuilder as JRandomMapBuilder
 from mettagrid_tpu_torch import builder as tbuilder
 from mettagrid_tpu_torch import engine as tengine
 from mettagrid_tpu_torch.engine import obs as tobs
+from mettagrid_tpu_torch.engine.step import step_gates
 from mettagrid_tpu_torch.engine.interop import state_from_numpy
 from mettagrid_tpu_torch.engine.kernels.obs_tail_static_v2 import obs_tail_static_v2, obs_tail_static_v2_ref
 from mettagrid_tpu_torch.maps.random_map import RandomMapBuilder
@@ -63,7 +64,7 @@ def _jax_case(width, seed):
 
 def _port_obs_fn(width):
     program, init = _arena(tengine, tbuilder, RandomMapBuilder, width)
-    assert tobs.static_background_ok(program)
+    assert step_gates(program).static_bg
     return tobs.make_obs_fn(program, tobs.build_static_bg(program, init, "cpu"))
 
 

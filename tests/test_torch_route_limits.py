@@ -33,6 +33,7 @@ from mettagrid_tpu_torch.config import game_value as tgv
 from mettagrid_tpu_torch.engine import obs as tobs
 from mettagrid_tpu_torch.engine.kernels import tail_plan as tp
 from mettagrid_tpu_torch.engine.program import manhattan_window_offsets
+from mettagrid_tpu_torch.engine.step import step_obs_fn
 from mettagrid_tpu_torch.maps.random_map import RandomMapBuilder
 from mettagrid_tpu_torch.tools import bench_run
 from tests.test_torch_general import A, _build, _cfgs, _lockstep
@@ -51,8 +52,7 @@ def _value_obs(cfg, game_value):
 
 def _obs_fn(cfg):
     program, init = bench_run.build_pool(cfg, 1)
-    bg = tobs.build_static_bg(program, init, "cpu") if tobs.static_background_ok(program) else None
-    return program, tobs.make_obs_fn(program, bg, "cpu")
+    return program, step_obs_fn(program, init, "cpu")
 
 
 def _plans(fn, A):

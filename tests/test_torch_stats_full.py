@@ -36,7 +36,6 @@ from mettagrid_tpu_torch.config.handler_config import (
     StatsMutation,
     StatsTarget,
 )
-from mettagrid_tpu_torch.engine.actions_fast import batch_gridless
 from tests.test_torch_mutation_kinds import (
     E,
     _assert_equal,
@@ -93,7 +92,7 @@ def _lockstep(cfg, mode):
     assert_inits_equal(ji, ti)
     jstep = jengine.make_step(jp, ji, auto_reset=True, donate=False, action_mode="sequential", external_perm=True)
     tstep = tengine.make_step(tp, ti, auto_reset=True, device="cpu", action_mode=mode, external_perm=True)
-    lazy = tstep.action_phase_kind == "waves" and batch_gridless(tp)
+    lazy = tstep.lazy_grid
     tstate, tout = tengine.make_reset(tp, ti, E, device="cpu")(0)
     jstate, jbuf = jax_state_of(tstate), jnp.asarray(tout.observations.numpy())
     rng = np.random.default_rng(1)

@@ -30,6 +30,7 @@ import pytest
 
 from mettagrid_tpu_torch.engine import obs as tobs
 from mettagrid_tpu_torch.engine.kernels import tail_plan as tp
+from mettagrid_tpu_torch.engine.step import step_obs_fn
 from mettagrid_tpu_torch.tools import bench_run
 
 
@@ -64,8 +65,7 @@ BENCH = {
 def test_bench_shapes_plan(variant):
     route, rounds, out_w, stage_counts, stages = BENCH[variant]
     program, init = bench_run.build_pool(bench_run.make_cfg(variant), 1)
-    bg = tobs.build_static_bg(program, init, "cpu") if tobs.static_background_ok(program) else None
-    fn = tobs.make_obs_fn(program, bg, "cpu", obs_tail=bench_run.variant_options(variant)["obs_tail"])
+    fn = step_obs_fn(program, init, "cpu", obs_tail=bench_run.variant_options(variant)["obs_tail"])
     assert fn.route == route
     sh = dict(fn.tail_shapes)
     fits = _one_image_and_tables(sh["HP"], sh["WPC"], sh["K"], sh["S"]) <= tobs.MAX_SMEM

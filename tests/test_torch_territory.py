@@ -21,7 +21,7 @@ shown. Its gridless gate walks territory handlers too, and a territory whose
 prefix names no tag raises when the phase or the observations are built.
 
 The port's observations take a static background where every AOE and
-territory write lands on an agent (obs.static_obs_background_ok, a
+territory write lands on an agent (mutfields.static_background, a
 whitelist held here case by case); that route is held to the mutable one,
 byte for byte, across auto-resets that swap maps.
 """
@@ -122,7 +122,8 @@ def test_territory_cfg_compiles_like_jax():
     for f in ti.__dataclass_fields__:
         np.testing.assert_array_equal(getattr(ti, f), getattr(ji, f), err_msg=f)
     assert len(tp.aoe_specs) == 2 and len(tp.territories) == 1
-    assert not tobs.static_background_ok(tp) and tobs.static_obs_background_ok(tp)
+    gates = tstep.step_gates(tp)
+    assert not gates.lazy_grid and gates.static_bg
     assert tobs.make_obs_fn(tp, None, "cpu").route == "nonfused"
 
 
@@ -291,9 +292,10 @@ def test_static_observation_gate(case):
     cfg = config_module("territory").port_config(BENCH_SPEC, 100)
     change(cfg)
     program = tengine.compile_program(cfg)
-    assert tobs.static_obs_background_ok(program) == admitted
-    assert tobs.static_mask_ok(program) == mask_static
-    assert not tobs.static_background_ok(program)
+    gates = tstep.step_gates(program)
+    assert gates.static_bg == admitted
+    assert gates.static_mask == mask_static
+    assert not gates.lazy_grid
     if case == "territory":
         one_map = cfg.game.map_builder.model_copy(update={"seed": 0}).create().build_for_num_agents(program.num_agents)
         init = tengine.build_env_init(program, [one_map])
@@ -314,7 +316,7 @@ def test_static_route_matches_mutable_route(monkeypatch):
     E, A, N, P = 4, tp.num_agents, ti.obj_type.shape[1], 3
     state, _ = tengine.make_reset(tp, ti, E, device="cpu")(0)
     static_step = tengine.make_step(tp, ti, external_perm=True, device="cpu")
-    monkeypatch.setattr(tstep, "_make_obs_fn_for", lambda program, init, device, obs_tail, draws:
+    monkeypatch.setattr(tstep, "step_obs_fn", lambda program, init, device, obs_tail, draws, gates=None:
                         tobs.make_obs_fn(program, None, device, obs_tail, draws))
     mutable_step = tengine.make_step(tp, ti, external_perm=True, device="cpu")
     assert static_step.obs_fn.route == mutable_step.obs_fn.route == "nonfused"
