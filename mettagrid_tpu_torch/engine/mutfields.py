@@ -11,7 +11,7 @@ mutation sites, each with its context. From both:
   step.make_step's auto-reset merge skips it (the r5 merge measured
   ~0.49 ms/step at E=4096, mostly bandwidth over fields like `grid` and
   `obj_inv` that pure-move programs never touch). aoe.make_aoe_phase bounds
-  its presence sources from the pool where no phase writes `obj_type`.
+  every spec's sources from the pool where no phase writes `obj_type`.
 * static_background and static_mask: the observations' pooled background
   and AOE-mask source (obs.build_static_bg, obs.build_static_mask).
 

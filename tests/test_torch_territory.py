@@ -20,6 +20,10 @@ METTAGRID_TPU_NO_MERGE_SKIP=1, and the leak of the reference's own merge is
 shown. Its gridless gate walks territory handlers too, and a territory whose
 prefix names no tag raises when the phase or the observations are built.
 
+Where no phase writes an object's type, the port's AOE phase runs each spec
+over its type's slots as the pool bounds them; that path is held to the one
+over every slot (the path where a type may be written), state for state.
+
 The port's observations take a static background where every AOE and
 territory write lands on an agent (mutfields.static_background, a
 whitelist held here case by case); that route is held to the mutable one,
@@ -46,14 +50,17 @@ from mettagrid_tpu_torch.config.handler_config import (
     EntityTarget,
     Handler,
     ResourceDeltaMutation,
+    SharedTagPrefixFilter,
     SpawnObjectMutation,
     SwapMutation,
 )
 from mettagrid_tpu_torch.config.tag import typeTag
 from mettagrid_tpu_torch.config.territory_config import TerritoryConfig, TerritoryControlConfig
+from mettagrid_tpu_torch.engine import aoe
 from mettagrid_tpu_torch.engine import obs as tobs
 from mettagrid_tpu_torch.engine import step as tstep
 from mettagrid_tpu_torch.engine.state import EnvState
+from mettagrid_tpu_torch.maps.map_builder import GameMap
 from mettagrid_tpu_torch.profiling import trace
 from mettagrid_tpu_torch.engine.actions_fast import gridless_batch_ok
 from mettagrid_tpu_torch.engine.mutfields import maybe_written_pool_fields
@@ -229,22 +236,25 @@ def test_empty_territory_tag_table_raises():
         tobs.make_obs_fn(program, None, "cpu")
 
 
+def _paying_junctions(cfg):
+    """Each junction pays a heart from its own inventory to each agent within
+    radius 6, unfiltered: a mutation that runs per (source, agent) pair."""
+    for name in ("junction_cogs", "junction_clips"):
+        obj = cfg.game.objects[name]
+        obj.inventory.initial = {"heart": 6}
+        obj.aoes = {"pay": AOEConfig(name="pay", radius=6, mutations=[
+            ResourceDeltaMutation(target=EntityTarget.ACTOR, deltas={"heart": -1}),
+            ResourceDeltaMutation(target=EntityTarget.TARGET, deltas={"heart": 1}),
+        ])}
+
+
 def test_aoe_general_mutations_match_jax():
     """An AOE whose mutation runs per (source, agent) pair (the junction pays
     a heart from its own inventory for each agent it reaches) over four
     unfiltered junctions of radius 6, so that agents stand in both sources
     of one type at once: 20 steps of 8 agents, pool 3, in lockstep."""
 
-    def change(cfg):
-        for name in ("junction_cogs", "junction_clips"):
-            obj = cfg.game.objects[name]
-            obj.inventory.initial = {"heart": 6}
-            obj.aoes = {"pay": AOEConfig(name="pay", radius=6, mutations=[
-                ResourceDeltaMutation(target=EntityTarget.ACTOR, deltas={"heart": -1}),
-                ResourceDeltaMutation(target=EntityTarget.TARGET, deltas={"heart": 1}),
-            ])}
-
-    jcfg, tcfg = _cfgs(12, agents=8, change=change)
+    jcfg, tcfg = _cfgs(12, agents=8, change=_paying_junctions)
     program = tengine.compile_program(tcfg)
     assert any(m.kind == "resource_delta" and m.target_is_actor for s in program.aoe_specs for m in s.mutations)
     seen = {}
@@ -347,3 +357,86 @@ def test_static_route_matches_mutable_route(monkeypatch):
         counts[name] = (trace.counted("obs.stage1_slots"), trace.counted("host_syncs.territory.emitters"))
     trace.reset()
     assert counts == {"static": (E * A, 1), "mutable": (E * N, 2)}
+
+
+def _agent_aura(effect_self):
+    """Agents carry an AOE of radius 2 (mobile sources in the agent prefix):
+    a heart a tick to agents of their team, armor while inside."""
+
+    def change(cfg):
+        cfg.game.agent.aoes = {"aura": AOEConfig(
+            name="aura", radius=2, effect_self=effect_self, filters=[SharedTagPrefixFilter(tag_prefix="team")],
+            mutations=[ResourceDeltaMutation(target=EntityTarget.TARGET, deltas={"heart": 1})],
+            presence_deltas={"armor": 1})}
+
+    return change
+
+
+JUNCTIONS = {"wall": 10, "junction_cogs": 2, "junction_clips": 2}
+CELLS = {"#": "wall", ".": "empty", "@": "agent.agent", "C": "junction_cogs", "K": "junction_clips"}
+# Two maps of 11 objects, slots in row-major order: the second holds one
+# junction_cogs fewer, and it is its last slot, N - 1, so the padding of its
+# source lists (N, clipped to N - 1 where a row is read) lands on a source.
+PADDED = [["@@@@....", "..C.C...", "@@@@..K."],
+          ["@@@.....", ".#..K...", "@@@@.@.C"]]
+BOUNDED_CASES = {
+    # case: (change, agents, each pool map: the objects of a random map, or its rows)
+    "junction_slots_differ": (None, 24, [JUNCTIONS] * 3),
+    "padded_sources": (None, 8, PADDED),
+    "agent_aura": (_agent_aura(False), 8, [JUNCTIONS] * 3),
+    "agent_aura_self": (_agent_aura(True), 8, [JUNCTIONS] * 3),
+    "general_mutations": (_paying_junctions, 8, [JUNCTIONS] * 3),
+}
+
+
+@pytest.mark.parametrize("case", list(BOUNDED_CASES))
+def test_bounded_sources_match_every_slot(case, monkeypatch):
+    """Where no phase writes an object's type, each AOE spec runs over its
+    type's slots as the pool bounds them; that step equals the one over every
+    slot (the path taken where a type may be written, forced here), every
+    state field and output after every step of 20 over 8 envs, with
+    max_steps=12 and each auto-reset onto a drawn pool map: junctions at other slots in each
+    map, maps with fewer sources of a type than the bound (padding), agents
+    as sources with and without their own reach, and a mutation per (source,
+    agent) pair where agents stand in two sources of one type."""
+    change, agents, objects = BOUNDED_CASES[case]
+    _, tcfg = _cfgs(12, agents=agents, change=change)
+    program = tengine.compile_program(tcfg)
+    mb = tcfg.game.map_builder
+    maps = [mb.model_copy(update={"seed": 3 + i, "objects": o}).create().build_for_num_agents(program.num_agents)
+            if isinstance(o, dict) else GameMap(np.array([[CELLS[ch] for ch in row] for row in o]))
+            for i, o in enumerate(objects)]
+    init = tengine.build_env_init(program, maps)
+    E, A, P = 8, program.num_agents, len(maps)
+    written = aoe.maybe_written_pool_fields(program)
+    assert "obj_type" not in written
+    bounded = tengine.make_step(program, init, auto_reset=True, external_perm=True, device="cpu")
+    monkeypatch.setattr(aoe, "maybe_written_pool_fields", lambda p: written | {"obj_type"})
+    dense = tengine.make_step(program, init, auto_reset=True, external_perm=True, device="cpu")
+    junctions = [program.type_names.index(n) for n in ("junction_cogs", "junction_clips")]
+    where = [tuple(np.flatnonzero(np.isin(t, junctions))) for t in init.obj_type]
+    counts = {tuple(int((t == j).sum()) for j in junctions) for t in init.obj_type}
+    assert len(set(where)) == P and (case != "padded_sources" or len(counts) == P)
+
+    state, _ = tengine.make_reset(program, init, E, device="cpu")(0)
+    rng = np.random.default_rng(0)
+    zeros = torch.zeros((E, A), dtype=torch.int32)
+    bstate, dstate, inside, agents_inside, overlap = state, state, 0, 0, 0
+    for i in range(20):
+        acts = torch.from_numpy(rng.integers(0, 5, (E, A)).astype(np.int32))
+        perm = torch.from_numpy(np.stack([rng.permutation(A) for _ in range(E)]).astype(np.int32))
+        maps_drawn = torch.from_numpy(rng.integers(0, P, E).astype(np.int32))
+        bstate, bout = bounded(bstate, acts, zeros, perm, reset_maps=maps_drawn)
+        dstate, dout = dense(dstate, acts, zeros, perm, reset_maps=maps_drawn)
+        for name, a, b in zip(EnvState._fields, bstate, dstate):
+            assert a.shape == b.shape and torch.equal(a, b), (i, name)
+        for name, a, b in zip(bout._fields, bout, dout):
+            assert torch.equal(a, b), (i, name)
+        inside += int(bstate.aoe_inside.sum())
+        agents_inside += int(bstate.aoe_inside[:, :, :A].sum())
+        overlap = max(overlap, int(bstate.aoe_inside.sum(dim=2).max()))
+    assert inside > 0
+    if case.startswith("agent_aura"):
+        assert agents_inside > 0, "no agent stood in another's aura"
+    if case == "general_mutations":
+        assert overlap >= 2, "no agent stood in two sources of one AOE at once"

@@ -287,7 +287,7 @@ def territory_built():
 
     zeros = torch.zeros((TE, A), dtype=torch.int32)
     state, out = step(state, draw(), zeros)  # the first call is set-up
-    b = dict(program=program, step=step, state=state, out=out, draw=draw, zeros=zeros)
+    b = dict(program=program, init=init, step=step, state=state, out=out, draw=draw, zeros=zeros)
 
     def one():
         before = trace.snapshot()
@@ -307,12 +307,45 @@ def test_territory_counters_count_the_stated_shapes(territory_built):
     junctions = [i for i, name in enumerate(p.type_names) if name.startswith("junction_")]
     emitters = int((torch.isin(state.obj_type, torch.tensor(junctions)) & state.obj_alive).sum(1).max())
     assert len(p.aoe_specs) == 2 and emitters == 4
-    assert d["aoe.pairs"] == len(p.aoe_specs) * E * N * A
+    # Each spec over its type's slots, two junctions in every pool map.
+    assert d["aoe.pairs"] == len(p.aoe_specs) * E * 2 * A
     # The agents' cells in the territory phase, each times the emitters: the AOE mask's cells are scored
     # once per pool map (no agent emits territory), outside the step.
     assert d["territory.points"] == E * A * emitters
     # Over the static background stage 1 encodes the agents alone.
     assert d["obs.stage1_slots"] == E * A
+
+
+@pytest.mark.parametrize("path", ["bounded", "dense"])
+def test_aoe_pairs_count_the_evaluated_sources(territory_built, monkeypatch, path):
+    """``aoe.pairs`` counts the (source slot, agent) pairs the AOE phase
+    evaluates: Σ_k E·J_k·A where the pool bounds each spec's sources (J_k the
+    most slots of its type in a pool map), E·N·A for each spec over every slot
+    where a type may be written. The bounded phase reads nothing back; the
+    dense one reads the number of sources with presence deltas."""
+    from mettagrid_tpu_torch.engine import aoe
+
+    b = territory_built
+    p, init, state = b["program"], b["init"], b["state"]
+    E, N = state.obj_type.shape
+    if path == "dense":
+        written = aoe.maybe_written_pool_fields(p)
+        monkeypatch.setattr(aoe, "maybe_written_pool_fields", lambda program: written | {"obj_type"})
+    phase = trace.program_step(aoe.make_aoe_phase(p, init))
+    phase(state)  # the first call is set-up
+    before = trace.snapshot()
+    phase(state)
+    after = trace.reset()  # leaves no name of this phase's reads in the totals of later tests
+    d = {k: _count(after, k) - _count(before, k) for k in after}
+    reads = {k: v for k, v in d.items() if v and (k.startswith("sync.") or k.startswith("host_syncs"))}
+    if path == "bounded":
+        J = [int((init.obj_type == s.type_id).sum(axis=1).max()) for s in p.aoe_specs]
+        assert J == [2, 2]
+        assert d["aoe.pairs"] == sum(E * j * A for j in J)
+        assert reads == {}
+    else:
+        assert d["aoe.pairs"] == len(p.aoe_specs) * E * N * A
+        assert reads == {"sync.aoe.presence_sources": 1, "host_syncs": 1, "host_syncs.aoe.presence_sources": 1}
 
 
 def test_territory_counters_are_absent_on_the_arena(built):
